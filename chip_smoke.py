@@ -28,7 +28,6 @@ from ``src/repro_torch/kernels/csrc``, and then:
 
 Every phase asserts; any failure raises and the exit code is non-zero.
 Without a CUDA device it exits non-zero before printing any result.
-``--kernels-only`` stops after phase 2.
 """
 
 from __future__ import annotations
@@ -75,6 +74,11 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 
 PAPER_ROWS = 10_000_000
+N_ROWS = 1_000_000          # cut from PAPER_ROWS for the smoke's time limit
+BATCH = 65_536              # transactions per main-path batch
+N_BATCHES = 8
+SMALL_BATCH = 1_500         # its rounds fall under the fused round's 2048 lanes
+SEGMENT_BYTES = 64 << 20    # recovery sees sealed tiles and tail tiles
 TORN_VALUE = b"TORN-VALUE-NEVER-COMMITTED"
 DECLINES = ("occ.fused.decline.small_batch", "occ.fused.decline.dense_padding",
             "occ.fused.decline.i32_range")
@@ -288,28 +292,38 @@ def _torn_record() -> bytes:
     return t.encode()[:-7]
 
 
-def run_main_path(device, workdir, n_rows=1_000_000, batch=65_536, n_batches=8,
-                  small=1_500, segment_bytes=64 << 20, seed=0, log=print):
-    """Forward path, checkpoint, kill and recovery; returns the measurements.
-    ``device`` is where the kernel mode runs (``"cuda"`` on the chip)."""
+def run_main_path(workdir, seed=0):
+    """Forward path, checkpoint, kill and recovery on the card; returns the
+    measurements, with ``out["launches"]``: each kernel's launches over
+    exactly that run (the extra recovery under the CUDA profiler comes
+    after it and is not counted)."""
     reg = metrics.enable()
-    on_card = torch.device(device).type == "cuda"   # kernels launch (and count)
-    out = {"rows": n_rows, "batch": batch, "batches": []}
+    out = {"rows": N_ROWS, "batch": BATCH, "batches": []}
     logdir = os.path.join(workdir, "logs")
     ckdir = os.path.join(workdir, "ckpt")
 
     t0 = time.perf_counter()
     table = ArrayTable()
-    ycsb.load(table, n_rows, seed=seed)
+    ycsb.load(table, N_ROWS, seed=seed)
     out["load_s"] = time.perf_counter() - t0
 
     engine = PoplarEngine(EngineConfig(
         n_buffers=4, device_kind="ssd", device_dir=logdir, device_clock="virtual",
-        segment_bytes=segment_bytes))
+        segment_bytes=SEGMENT_BYTES))
     engine.start()
-    occ = BatchOCC(table, engine, n_workers=4, mode="kernel", device=device)
-    wo = ycsb.YCSBWriteOnly(n_rows, seed=seed)
-    hy = ycsb.YCSBHybrid(n_rows, scan_length=10, seed=seed)
+    occ = BatchOCC(table, engine, n_workers=4, mode="kernel", device="cuda")
+    # per round, in order: did the fused round take it (or decline it)?
+    fused_log = []
+    fused_round = occ._fused_round
+
+    def _logged_fused_round(*a):
+        res = fused_round(*a)
+        fused_log.append(res is not None)
+        return res
+
+    occ._fused_round = _logged_fused_round
+    wo = ycsb.YCSBWriteOnly(N_ROWS, seed=seed)
+    hy = ycsb.YCSBHybrid(N_ROWS, scan_length=10, seed=seed)
     expect = {}   # key -> (value, ssn) of the newest drained write
 
     def _record(res, writes_of):
@@ -341,9 +355,10 @@ def run_main_path(device, workdir, n_rows=1_000_000, batch=65_536, n_batches=8,
             def writes_of(t, i):
                 return [(k.encode(), v) for k, v in t.write_set]
         tspan.TRACER.reset()
+        fused_log.clear()
         device = {}
         t1 = time.perf_counter()
-        if profiled and on_card:
+        if profiled:
             res, device = _device_ms(execute)
         else:
             res = execute()
@@ -356,45 +371,52 @@ def run_main_path(device, workdir, n_rows=1_000_000, batch=65_536, n_batches=8,
             engine.quiesce(range(4))
             _record(res, writes_of)
         row = dict(kind=kind, entry=entry, txns=n, committed=len(res.committed),
-                   rounds=res.rounds, seconds=secs,
+                   rounds=res.rounds, fused_per_round=list(fused_log), seconds=secs,
                    txn_per_s=len(res.committed) / secs,
                    launches=_delta(dict(kcuda.LAUNCHES), launches0),
                    counters=_delta(_counters(reg), c0), drained=drain,
-                   stages_s=stages, profiled=bool(profiled and on_card))
+                   stages_s=stages, profiled=profiled)
         if device:
             copies = sum(ms for k, (ms, _) in device.items() if "emcpy" in k)
             row["device_ms"] = {"kernels": sum(ms for ms, _ in device.values()) - copies,
                                 "copies": copies}
         out["batches"].append(row)
-        log(f"batch {len(out['batches']) - 1}: {kind} {entry}, {n} txns, "
-            f"{row['committed']} committed in {res.rounds} rounds, {secs:.3f} s, "
-            f"{row['txn_per_s']:.0f} txn/s, launches {row['launches']}, "
-            f"fused rounds {row['counters']['occ.fused.rounds']:.0f}, host stages "
-            + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
-            + (f", device {row['device_ms']} ms" if device else ""))
+        print(f"batch {len(out['batches']) - 1}: {kind} {entry}, {n} txns, "
+              f"{row['committed']} committed in {res.rounds} rounds "
+              f"(fused per round {row['fused_per_round']}), {secs:.3f} s, "
+              f"{row['txn_per_s']:.0f} txn/s, launches {row['launches']}, "
+              f"host stages " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+              + (f", device {row['device_ms']} ms" if device else ""))
         return row
 
-    kinds = ["write-only", "hybrid"] * (n_batches // 2)
+    kinds = ["write-only", "hybrid"] * (N_BATCHES // 2)
     tspan.enable()
     for b, kind in enumerate(kinds):
-        if b == n_batches - 1:
-            # a round under 2048 lanes: the fused round declines and the
-            # segmented reduces of _first_writer/_base_ssns take seg_reduce
-            row = _run("write-only", small)
-            assert row["counters"]["occ.fused.decline.small_batch"] >= 1, row
-            assert row["launches"]["seg_reduce"] >= 2 or not on_card, row
+        if b == N_BATCHES - 1:
+            # a batch under 2048 lanes: the fused round declines every round
+            # and the segmented reduces of _first_writer/_base_ssns take
+            # seg_reduce
+            row = _run("write-only", SMALL_BATCH)
+            assert row["fused_per_round"] == [False] * row["rounds"], row
+            assert row["counters"]["occ.fused.decline.small_batch"] == row["rounds"], row
+            assert row["launches"]["seg_reduce"] >= 2, row
             # the kill: the last batch is published, not drained
-            row = _run(kind, batch, drain=False)
+            row = _run(kind, BATCH, drain=False)
         else:
             # the first batch of each kind also runs under the CUDA profiler
-            row = _run(kind, batch, profiled=b < 2)
-        # the full-size batches take the fused round; only retry rounds that
-        # shrink under 2048 lanes decline, as the reference's rule says
-        c = row["counters"]
-        assert c["occ.fused.rounds"] >= 1, row
+            row = _run(kind, BATCH, profiled=b < 2)
+        # A full-size batch's first round always takes the fused round, and
+        # the fused rounds come first.  Only its retry rounds may decline,
+        # and only for size: the losers they retry can fall under the 2048
+        # lanes below which the reference's rule (BatchOCC.fused_min_lanes)
+        # declines, so decline.small_batch is held to rounds - 1, not to 0.
+        c, per_round = row["counters"], row["fused_per_round"]
+        assert len(per_round) == row["rounds"] and per_round[0], row
+        assert per_round == sorted(per_round, reverse=True), row
+        assert c["occ.fused.rounds"] == sum(per_round), row
         assert c["occ.fused.decline.dense_padding"] == 0, row
         assert c["occ.fused.decline.i32_range"] == 0, row
-        assert c["occ.fused.decline.small_batch"] <= row["rounds"] - 1, row
+        assert c["occ.fused.decline.small_batch"] == row["rounds"] - sum(per_round), row
         if b == 3:
             t1 = time.perf_counter()
             ck = CheckpointDaemon(ckdir, n_threads=2, m_files=2,
@@ -404,7 +426,7 @@ def run_main_path(device, workdir, n_rows=1_000_000, batch=65_536, n_batches=8,
                      for lo, hi in ((0, n // 2), (n // 2, n))]
             ck.run_once(parts, epoch=1)
             out["checkpoint_s"] = time.perf_counter() - t1
-            log(f"checkpoint after batch {b}: {n} rows in {out['checkpoint_s']:.3f} s")
+            print(f"checkpoint after batch {b}: {n} rows in {out['checkpoint_s']:.3f} s")
 
     tspan.disable()
     engine.stop()                 # kill: loggers die, the ring's contents are lost
@@ -422,25 +444,16 @@ def run_main_path(device, workdir, n_rows=1_000_000, batch=65_536, n_batches=8,
     for mode in ("kernel", "vectorized", "scalar"):
         launches0 = dict(kcuda.LAUNCHES)
         t1 = time.perf_counter()
-        kw = {"device": device} if mode == "kernel" else {}
+        kw = {"device": "cuda"} if mode == "kernel" else {}
         states[mode] = recover(devs, mode=mode, **kw)
         rec[mode] = dict(seconds=time.perf_counter() - t1,
                          launches=_delta(dict(kcuda.LAUNCHES), launches0),
                          fused=states[mode].report.fused)
-        log(f"recover mode={mode}: {rec[mode]['seconds']:.3f} s, "
-            f"launches {rec[mode]['launches']}, fused {rec[mode]['fused']}")
+        print(f"recover mode={mode}: {rec[mode]['seconds']:.3f} s, "
+              f"launches {rec[mode]['launches']}, fused {rec[mode]['fused']}")
     st = states["kernel"]
     assert st.report.fused is True, "the fused kernel recovery did not engage"
-    if on_card:
-        # once more under the CUDA profiler: the card's share of a recovery
-        t1 = time.perf_counter()
-        again, dev_rows = _device_ms(lambda: recover(devs, mode="kernel", device=device))
-        assert again.data == st.data
-        copies = sum(ms for k, (ms, _) in dev_rows.items() if "emcpy" in k)
-        rec["kernel_profiled"] = dict(
-            seconds=time.perf_counter() - t1, copies_ms=copies,
-            kernels_ms=sum(ms for ms, _ in dev_rows.values()) - copies)
-        log(f"recover mode=kernel under the profiler: {rec['kernel_profiled']}")
+    assert rec["kernel"]["launches"]["ssn_scatter_max"] >= 1, rec["kernel"]
     for mode in ("vectorized", "scalar"):
         o = states[mode]
         assert (o.data, o.rsns, o.rsne, o.n_replayed, o.n_skipped_uncommitted) == (
@@ -456,8 +469,8 @@ def run_main_path(device, workdir, n_rows=1_000_000, batch=65_536, n_batches=8,
     rec["replayed"] = st.n_replayed
     rec["skipped"] = st.n_skipped_uncommitted
     out["recovery"] = rec
-    log(f"durability: {len(expect)} drained keys read back; rsne {st.rsne}, "
-        f"replayed {st.n_replayed}, skipped {st.n_skipped_uncommitted}")
+    print(f"durability: {len(expect)} drained keys read back; rsne {st.rsne}, "
+          f"replayed {st.n_replayed}, skipped {st.n_skipped_uncommitted}")
 
     ckpt = load_latest_checkpoint(ckdir)
     logs = load_columnar_segmented(devs, parallel=True)
@@ -465,18 +478,29 @@ def run_main_path(device, workdir, n_rows=1_000_000, batch=65_536, n_batches=8,
     launches0 = dict(kcuda.LAUNCHES)
     t1 = time.perf_counter()
     with_kernel = replay_columnar(logs, rsne, base=ckpt.data, use_kernel=True,
-                                  device=device)
+                                  device="cuda")
     t_kernel = time.perf_counter() - t1
     launches = _delta(dict(kcuda.LAUNCHES), launches0)
     t1 = time.perf_counter()
     plain = replay_columnar(logs, rsne, base=ckpt.data)
     t_vec = time.perf_counter() - t1
     assert with_kernel == plain, "checkpoint replay: kernel apply != vectorized"
-    assert launches["ssn_scatter_max"] >= 1 or not on_card, launches
+    assert launches["ssn_scatter_max"] >= 1, launches
     out["checkpoint_replay"] = dict(kernel_s=t_kernel, vectorized_s=t_vec,
                                     launches=launches, base_keys=len(ckpt.data))
-    log(f"replay_columnar against the checkpoint ({len(ckpt.data)} keys): kernel "
-        f"{t_kernel:.3f} s, vectorized {t_vec:.3f} s, launches {launches}")
+    print(f"replay_columnar against the checkpoint ({len(ckpt.data)} keys): kernel "
+          f"{t_kernel:.3f} s, vectorized {t_vec:.3f} s, launches {launches}")
+    out["launches"] = dict(kcuda.LAUNCHES)    # the main path ends here
+
+    # once more under the CUDA profiler: the card's share of a recovery
+    t1 = time.perf_counter()
+    again, dev_rows = _device_ms(lambda: recover(devs, mode="kernel", device="cuda"))
+    assert again.data == st.data
+    copies = sum(ms for k, (ms, _) in dev_rows.items() if "emcpy" in k)
+    rec["kernel_profiled"] = dict(
+        seconds=time.perf_counter() - t1, copies_ms=copies,
+        kernels_ms=sum(ms for ms, _ in dev_rows.values()) - copies)
+    print(f"recover mode=kernel under the profiler: {rec['kernel_profiled']}")
     for d in devs:
         d.close()
     metrics.disable()
@@ -486,7 +510,6 @@ def run_main_path(device, workdir, n_rows=1_000_000, batch=65_536, n_batches=8,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels-only", action="store_true")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -511,18 +534,14 @@ def main(argv=None) -> int:
               f"(device {k['device_ms']} ms), plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound'][0]:.4f} ms ({k['bound'][1]})"
               f", library {k['library_ms']} ms | {smi}")
-    if args.kernels_only:
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
-        return 0
-
-    print(f"main path: YCSB 1000000 rows (reduced from the paper's {PAPER_ROWS}"
-          " for the smoke's time limit), 4 SSD devices, segments of 64 MiB")
+    print(f"main path: YCSB {N_ROWS} rows (reduced from the paper's {PAPER_ROWS}"
+          f" for the smoke's time limit), 4 SSD devices, segments of "
+          f"{SEGMENT_BYTES >> 20} MiB")
     workdir = tempfile.mkdtemp(prefix="chip_smoke-")
     try:
         kcuda.reset_launches()
-        out = run_main_path("cuda", workdir, seed=args.seed)
-        launches = dict(kcuda.LAUNCHES)
+        out = run_main_path(workdir, seed=args.seed)
+        launches = out["launches"]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     for name, n in launches.items():
