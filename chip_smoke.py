@@ -5,25 +5,39 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It puts ``src`` on ``sys.path`` itself, builds the three ``sm_90a`` kernels
-from ``src/repro_torch/kernels/csrc``, and then:
+It puts ``src`` on ``sys.path`` itself, builds the five ``sm_90a`` kernels
+from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
+together), and then:
 
 1. prints the card's name and power limit as ``nvidia-smi`` gives them;
-2. holds each kernel exactly equal to its plain PyTorch version on the card,
-   on seeded random inputs at the main path's shapes, and times both (CUDA
-   events, median after warm-up);
-3. drives the main path: YCSB (paper §6.2, one table, key plus 10 columns of
-   100 B) with 1,000,000 rows through ``BatchOCC(mode="kernel")`` onto four
-   path-backed SSD devices, alternating write-only and hybrid batches of
-   65,536 transactions, a fuzzy checkpoint, one small batch that the fused
-   round declines, and a kill with the last batch published but not drained
-   and a torn frame on device 0;
+2. holds each kernel against its plain PyTorch version on the card, on
+   seeded random inputs at its main path's shapes, and times both (CUDA
+   events, median after warm-up) beside the one PyTorch call that computes
+   the same function, where there is one: the three OLTP kernels exactly;
+   flash attention (hymba's prefill shape, B=8, S=T=2048, 25 query and 5 KV
+   heads of 64, full and window 1024, bfloat16 and float32, plus a ragged
+   S=1000) and the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
+   and bfloat16, plus S=1000) within stated tolerances;
+3. drives the OLTP main path: YCSB (paper §6.2, one table, key plus 10
+   columns of 100 B) with 1,000,000 rows through ``BatchOCC(mode="kernel")``
+   onto four path-backed SSD devices, alternating write-only and hybrid
+   batches of 65,536 transactions, a fuzzy checkpoint, one small batch that
+   the fused round declines, and a kill with the last batch published but
+   not drained and a torn frame on device 0;
 4. recovers with ``recover(mode="kernel")`` and holds it equal to the
    vectorized and scalar modes and to every drained write, and replays the
    logs against the checkpoint through ``replay_columnar(use_kernel=True)``;
-5. asserts that every kernel launched on the main path;
-6. prints throughput and recovery times beside the card's name and power
-   limit, one JSON line of kernel results, and as its last line
+5. drives the LLM serve path: ``hymba-1.5b`` at full width in bfloat16 with
+   seeded random weights, one ``ServeEngine`` (cache 4096) answering a
+   warm-up and a timed request of 8 prompts x 2048 tokens and one of
+   2 x 1000 tokens, 64 new tokens each; asserts finite logits and 32
+   launches of each LLM kernel per prefill, and profiles one more prefill;
+6. checks the serve path at full width in float32 (TF32 off): a prefill of
+   2048 tokens plus 16 decode steps against one prefill of all 2064;
+7. asserts that every kernel launched on its own path (each path's counts
+   set to 0 just before it and read just after);
+8. prints throughput, recovery and serving times beside the card's name and
+   power limit, one JSON line of kernel results, and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Every phase asserts; any failure raises and the exit code is non-zero.
@@ -45,6 +59,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import EngineConfig, PoplarEngine, Txn, make_devices, recover
 from repro_torch.core.checkpoint import CheckpointDaemon, load_latest_checkpoint
@@ -63,15 +78,23 @@ from repro_torch.kernels.batch_occ import (
     validate_sequence,
     validate_sequence_plain,
 )
+from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.scatter_max import NO_POS, ssn_scatter_max, ssn_scatter_max_plain
+from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
+from repro_torch.configs.registry import get_config
+from repro_torch.models.api import build_model
+from repro_torch.models.serve_llm import ServeEngine
 from repro_torch.obs import metrics
 from repro_torch.trace import span as tspan
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3.  int32 ALU rate: the data
 # sheet's 67 TFLOP/s fp32 counts an FMA as two operations on 128 lanes per
-# SM; int32 has 64 lanes per SM, one operation each: 67 / 4 TOP/s.
+# SM; int32 has 64 lanes per SM, one operation each: 67 / 4 TOP/s.  Dense
+# bf16 tensor-core rate 989 TFLOP/s; fp32 outside the tensor cores 67.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 PAPER_ROWS = 10_000_000
 N_ROWS = 1_000_000          # cut from PAPER_ROWS for the smoke's time limit
@@ -82,6 +105,24 @@ SEGMENT_BYTES = 64 << 20    # recovery sees sealed tiles and tail tiles
 TORN_VALUE = b"TORN-VALUE-NEVER-COMMITTED"
 DECLINES = ("occ.fused.decline.small_batch", "occ.fused.decline.dense_padding",
             "occ.fused.decline.i32_range")
+OLTP_KERNELS = ("validate_sequence", "ssn_scatter_max", "seg_reduce")
+LLM_KERNELS = ("flash_attention", "ssm_scan_chunked")
+# the LLM serve path: hymba-1.5b at full width (32 layers, d_model 1600,
+# 25 query / 5 KV heads of 64, window 1024 with full attention at layers
+# 0, 16 and 31, a 25-head Mamba branch of state 16)
+ARCH = "hymba-1.5b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, CACHE_LEN = 8, 2048, 64, 4096
+RAGGED_BATCH, RAGGED_PROMPT = 2, 1000
+ORACLE_STEPS = 16
+# kernel vs plain on the card: both accumulate in float32 in another order;
+# a bfloat16 output may round one ulp apart (2^-8 relative on O(1) values).
+# The reference's kernel-test tolerances (tests/test_kernels.py::_tol).
+LLM_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# the full-width float32 continuation oracle.  Measured on the H100:
+# 4.8e-5 with logits up to 4.1, where the two sides differ only in float32
+# summation order through 32 layers.  1e-3 keeps 20x of headroom and still
+# fails any stage computed in bfloat16 (2^-8 relative: ~1.6e-2 at 4.1).
+ORACLE_TOL = 1e-3
 # the executing thread's stages of one BatchOCC call (trace/span.py)
 BATCH_STAGES = (tspan.ST_VALIDATE, tspan.ST_SEQUENCE, tspan.ST_ENCODE,
                 tspan.ST_PUBLISH, tspan.ST_WRITEBACK)
@@ -140,9 +181,9 @@ def _max_abs_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
-def _bound(nbytes: int, ops: int):
+def _bound(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -241,12 +282,31 @@ def check_kernels(seed: int):
     want = ssn_scatter_max_plain(*args)
     assert all(torch.equal(g, w) for g, w in zip(got, want)), "ssn_scatter_max != plain"
     assert bool((got[1] == -1).any()), "no checkpoint slot survived its tie"
+    # the one PyTorch call that computes the same join, on prepared inputs:
+    # an int64 amax over (ssn + 1) << 32 | (INT32_MAX - pos), the image
+    # packed into slots 0..S-1 and every pad lane routed to slot S
+    img_ssn, img_pos, key, ssn, pos = args
+    s_slots = img_ssn.shape[0]
+
+    def _pack(sn, ps):
+        return ((sn.long() + 1) << 32) | (2**31 - 1 - ps.long())
+
+    lib_idx = torch.where((key >= 0) & (key < s_slots), key, s_slots).long()
+    lib_lanes = _pack(ssn, pos)
+    lib_img = torch.cat([_pack(img_ssn, img_pos), torch.zeros(1, dtype=torch.long, device=dev)])
+    lib_out = lib_img.clone().scatter_reduce_(0, lib_idx, lib_lanes, "amax", include_self=True)
+    lib_ssn = ((lib_out[:s_slots] >> 32) - 1).int()
+    lib_pos = (2**31 - 1 - (lib_out[:s_slots] & 0xFFFFFFFF)).int()
+    assert torch.equal(lib_ssn, got[0]) and torch.equal(lib_pos, got[1]), \
+        "scatter_reduce_ on packed words != ssn_scatter_max"
     results.append(dict(
         name="ssn_scatter_max", shape=shape, max_abs_err=_max_abs_err(got, want),
         ms=_median_ms(lambda: ssn_scatter_max(*args)),
         device_ms=_per_call_device_ms(lambda: ssn_scatter_max(*args)),
         plain_ms=_median_ms(lambda: ssn_scatter_max_plain(*args)),
-        bound=_bound(nbytes, ops), library_ms=None,
+        bound=_bound(nbytes, ops),
+        library_ms=_median_ms(lambda: lib_out.scatter_reduce_(
+            0, lib_idx, lib_lanes, "amax", include_self=True)),
         source="src/repro_torch/kernels/csrc/scatter_max.cu",
         replaces="src/repro/kernels/scatter_max.py:125",
     ))
@@ -276,7 +336,106 @@ def check_kernels(seed: int):
     return results
 
 
-# --- phases 3-5: the main path ----------------------------------------------
+# --- phase 2: the LLM kernels against their plain versions -------------------
+
+def _close(got, want, dtype):
+    """Max abs error, asserted within LLM_TOL (absolute plus relative)."""
+    tol = LLM_TOL[dtype]
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    bad = int(((g - w).abs() > tol + tol * w.abs()).sum())
+    assert bad == 0 and torch.isfinite(g).all(), (err, bad)
+    return err
+
+
+def _attn_pairs(s: int, t: int, window) -> int:
+    """Unmasked (query, key) pairs of a causal attention: the work this
+    mask needs."""
+    q = np.arange(s)
+    n = np.minimum(q + 1, t)
+    if window is not None:
+        n = np.minimum(n, window)
+    return int(n.sum())
+
+
+def _flash_case(gen, b, s, window, dtype, dev):
+    hq, hkv, d = 25, 5, 64
+    # the model's (B, S, H, D) activations, handed over as (B, H, S, D) views
+    q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    got = flash_attention_fwd(q, k, v, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, window=window)
+    err = _close(got, want, dtype)
+    esz = q.element_size()
+    nbytes = esz * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    flops = 4 * d * b * hq * _attn_pairs(s, s, window)
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    else:
+        pos = torch.arange(s, device=dev)
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    return dict(
+        name="flash_attention", max_abs_err=err, tol=LLM_TOL[dtype],
+        shape=f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} window={window} {str(dtype)[6:]}",
+        ms=_median_ms(lambda: flash_attention_fwd(q, k, v, window=window)),
+        device_ms=_per_call_device_ms(lambda: flash_attention_fwd(q, k, v, window=window), 5),
+        plain_ms=_median_ms(lambda: flash_attention_plain(q, k, v, window=window), reps=5),
+        bound=_bound(nbytes, flops, peak), library_ms=_median_ms(lib),
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:100",
+    )
+
+
+def _ssm_case(gen, b, s, dtype, dev):
+    h, p, n = 25, 64, 16
+    # the model's (B, S, H, P) activations and (B, S, H) steps as views
+    x = torch.randn(b, s, h, p, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    dt = (0.01 + 0.19 * torch.rand(b, s, h, generator=gen, device=dev)).transpose(1, 2)
+    decay = (0.7 + 0.299 * torch.rand(b, s, h, generator=gen, device=dev)).transpose(1, 2)
+    bm = torch.randn(b, s, n, generator=gen, device=dev).to(dtype)
+    cm = torch.randn(b, s, n, generator=gen, device=dev).to(dtype)
+    args = (x, dt, decay, bm, cm)
+    y, st = ssm_scan_chunked(*args)
+    torch.cuda.synchronize()
+    yw, stw = ssm_scan_chunked_plain(*args)
+    err = max(_close(y, yw, dtype), _close(st, stw, torch.float32))
+    esz = x.element_size()
+    nbytes = 2 * esz * b * h * s * p + 2 * 4 * b * h * s + 2 * esz * b * s * n + 4 * b * h * p * n
+    flops = 5 * b * h * s * p * n         # per step: decay, input, add; y = C.h
+    return dict(
+        name="ssm_scan_chunked", max_abs_err=err, tol=LLM_TOL[dtype],
+        shape=f"B={b} H={h} S={s} P={p} N={n} {str(dtype)[6:]}",
+        ms=_median_ms(lambda: ssm_scan_chunked(*args)),
+        device_ms=_per_call_device_ms(lambda: ssm_scan_chunked(*args), 5),
+        plain_ms=_median_ms(lambda: ssm_scan_chunked_plain(*args), reps=5),
+        bound=_bound(nbytes, flops, FP32_FLOPS), library_ms=None,
+        source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan.py:82",
+    )
+
+
+def check_llm_kernels(seed: int):
+    """Every case at hymba's prefill shapes; returns all cases, the main
+    path's case of each kernel first (attention: bfloat16 with the window
+    of 29 of the 32 layers; the scan: float32, which the model feeds it)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, s = SERVE_BATCH, SERVE_PROMPT
+    cases = [_flash_case(gen, b, s, 1024, torch.bfloat16, dev)]
+    cases += [_flash_case(gen, b, s, w, dt, dev)
+              for dt, w in ((torch.bfloat16, None), (torch.float32, 1024), (torch.float32, None))]
+    cases.append(_flash_case(gen, RAGGED_BATCH, RAGGED_PROMPT, 1024, torch.bfloat16, dev))
+    cases.append(_ssm_case(gen, b, s, torch.float32, dev))
+    cases.append(_ssm_case(gen, b, s, torch.bfloat16, dev))
+    cases.append(_ssm_case(gen, RAGGED_BATCH, RAGGED_PROMPT, torch.float32, dev))
+    return cases
+
+
+# --- phases 3-4: the OLTP main path -----------------------------------------
 
 def _counters(reg):
     return {name: reg.counter_value(name) for name in ("occ.fused.rounds", *DECLINES)}
@@ -507,6 +666,134 @@ def run_main_path(workdir, seed=0):
     return out
 
 
+# --- phases 5-6: the LLM serve path ------------------------------------------
+
+def run_serve_path(seed: int, smi: str):
+    """hymba-1.5b at full width in bfloat16: a warm-up request, the timed
+    one, and a ragged one through one ServeEngine.  Returns the
+    measurements and the bfloat16 model."""
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    out = {"arch": cfg.name, "n_params": cfg.n_params(), "init_s": time.perf_counter() - t0,
+           "cache_len": CACHE_LEN, "requests": []}
+    finite = []
+    prefill, decode = model.prefill, model.decode_step
+
+    def _prefill(batch, cache_len):
+        logits, caches = prefill(batch, cache_len)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+    def _decode(caches, tokens, pos):
+        logits, caches = decode(caches, tokens, pos)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+    model.prefill, model.decode_step = _prefill, _decode
+    engine = ServeEngine(model, cache_len=CACHE_LEN)
+    rng = np.random.default_rng(seed)
+    torch.cuda.reset_peak_memory_stats()
+    for tag, b, s in (("warm-up", SERVE_BATCH, SERVE_PROMPT), ("timed", SERVE_BATCH, SERVE_PROMPT),
+                      ("ragged", RAGGED_BATCH, RAGGED_PROMPT)):
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+        finite.clear()
+        before = dict(kcuda.LAUNCHES)
+        res = engine.generate({"tokens": tokens}, max_new=SERVE_NEW)
+        launches = _delta(dict(kcuda.LAUNCHES), before)
+        assert len(finite) == SERVE_NEW and all(bool(f) for f in finite), tag
+        assert res.tokens.shape == (b, SERVE_NEW)
+        assert ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()
+        for name in LLM_KERNELS:    # one prefill, one launch per layer
+            assert launches[name] == cfg.n_layers, (tag, launches)
+        for name in OLTP_KERNELS:
+            assert launches[name] == 0, (tag, launches)
+        row = dict(request=tag, batch=b, prompt=s, new=SERVE_NEW,
+                   prefill_ms=res.prefill_s * 1e3, decode_ms=res.decode_s * 1e3,
+                   decode_ms_per_step=res.decode_s * 1e3 / (SERVE_NEW - 1),
+                   tok_per_s=res.tokens_per_s,
+                   prefill_tok_per_s=b * s / res.prefill_s, launches=launches)
+        out["requests"].append(row)
+        print(f"serve {ARCH} {tag}: {b} x {s} tokens + {SERVE_NEW} new: prefill "
+              f"{row['prefill_ms']:.1f} ms ({row['prefill_tok_per_s']:.0f} tok/s), decode "
+              f"{row['decode_ms']:.1f} ms ({row['decode_ms_per_step']:.2f} ms/step), "
+              f"{row['tok_per_s']:.1f} tok/s, launches {launches} | {smi}")
+        if tag == "timed":
+            out["timed_tokens"], out["timed_prompt"] = res.tokens, tokens
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    model.prefill, model.decode_step = prefill, decode
+    return out, model
+
+
+def profile_serve(model, tokens, steps: int = 8):
+    """One more prefill and ``steps`` decode steps under the CUDA profiler
+    (not counted): prefill device ms by kernel group, and per decode step
+    the device ms against the host clock (the card's busy share)."""
+    caches = []
+
+    def _prefill():
+        logits, c = model.prefill({"tokens": tokens}, CACHE_LEN)
+        caches.append(c)
+        return logits
+
+    logits, rows = _device_ms(_prefill)
+    groups = {"flash_attention": 0.0, "ssm_scan_chunked": 0.0, "gemm": 0.0, "copies": 0.0,
+              "other": 0.0}
+    for key, (ms, _) in rows.items():
+        k = key.lower()
+        if "flash_fwd" in k:
+            groups["flash_attention"] += ms
+        elif "ssm_chunked" in k:
+            groups["ssm_scan_chunked"] += ms
+        elif any(tag in k for tag in ("gemm", "nvjet", "cutlass", "gemv")):
+            groups["gemm"] += ms
+        elif "emcpy" in k:
+            groups["copies"] += ms
+        else:
+            groups["other"] += ms
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    s = tokens.shape[1]
+
+    def _decode():
+        for i in range(steps):
+            out, _ = model.decode_step(caches[0], tok, s + i)
+        return out
+
+    t0 = time.perf_counter()
+    _, drows = _device_ms(_decode)
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dev_ms = sum(ms for ms, _ in drows.values()) / steps
+    return dict(prefill_device_ms=groups, prefill_total_ms=sum(groups.values()),
+                prefill_top=[(k[:90], ms, n) for k, (ms, n) in top],
+                decode_device_ms_per_step=dev_ms, decode_host_ms_per_step=host_ms,
+                decode_ops_per_step=sum(n for _, n in drows.values()) / steps)
+
+
+def run_oracle(model, prompt, generated):
+    """Full width in float32 with TF32 off: a prefill of the prompt plus
+    ORACLE_STEPS decode steps on the tokens the bfloat16 run generated,
+    against one prefill of all of them.  Returns (max abs error, max |logit|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m32 = model.cast(torch.float32)
+    toks = torch.cat([prompt, generated[:, :ORACLE_STEPS]], dim=1)
+    s = prompt.shape[1]
+    logits, caches = m32.prefill({"tokens": toks[:, :s]}, CACHE_LEN)
+    for i in range(s, s + ORACLE_STEPS):
+        logits, caches = m32.decode_step(caches, toks[:, i:i + 1], i)
+    del caches
+    full, _ = m32.prefill({"tokens": toks}, CACHE_LEN)
+    err = float((logits[:, 0] - full[:, 0]).abs().max())
+    scale = float(full.abs().max())
+    assert torch.isfinite(logits).all() and torch.isfinite(full).all()
+    assert err <= ORACLE_TOL, (err, scale)
+    return err, scale
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -534,6 +821,13 @@ def main(argv=None) -> int:
               f"(device {k['device_ms']} ms), plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound'][0]:.4f} ms ({k['bound'][1]})"
               f", library {k['library_ms']} ms | {smi}")
+    llm_cases = check_llm_kernels(args.seed)
+    for k in llm_cases:
+        print(f"kernel {k['name']} ({k['shape']}): max abs err {k['max_abs_err']:.3g} "
+              f"(atol = rtol = {k['tol']}); {k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound'][0]:.4f} ms ({k['bound'][1]})"
+              f", library {k['library_ms']} ms | {smi}")
+    print("llm_kernel_cases " + json.dumps(llm_cases, default=float))
     print(f"main path: YCSB {N_ROWS} rows (reduced from the paper's {PAPER_ROWS}"
           f" for the smoke's time limit), 4 SSD devices, segments of "
           f"{SEGMENT_BYTES >> 20} MiB")
@@ -544,8 +838,8 @@ def main(argv=None) -> int:
         launches = out["launches"]
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} never launched on the main path"
+    for name in OLTP_KERNELS:
+        assert launches[name] > 0, f"kernel {name} never launched on the main path"
 
     for b in out["batches"]:
         tag = ", under the CUDA profiler" if b["profiled"] else ""
@@ -555,8 +849,32 @@ def main(argv=None) -> int:
         print(f"recovery s mode={mode}: {out['recovery'][mode]['seconds']:.3f} | {smi}")
     print("main_path " + json.dumps(out, default=float))
 
+    # the LLM serve path, with its own counts
+    kcuda.reset_launches()
+    serve, model = run_serve_path(args.seed, smi)
+    serve_launches = dict(kcuda.LAUNCHES)
+    for name in LLM_KERNELS:
+        assert serve_launches[name] > 0, f"kernel {name} never launched on the serve path"
+        launches[name] = serve_launches[name]
+    prof = profile_serve(model, serve["timed_prompt"])
+    print(f"prefill {SERVE_BATCH} x {SERVE_PROMPT} under the CUDA profiler: device ms "
+          f"{prof['prefill_device_ms']}, total {prof['prefill_total_ms']:.1f}; decode step: "
+          f"device {prof['decode_device_ms_per_step']:.2f} ms in "
+          f"{prof['decode_host_ms_per_step']:.2f} ms of host clock, "
+          f"{prof['decode_ops_per_step']:.0f} device ops | {smi}")
+    err, scale = run_oracle(model, serve["timed_prompt"][:1],
+                            torch.from_numpy(serve["timed_tokens"][:1]).cuda())
+    print(f"float32 continuation oracle ({ARCH}, full width, TF32 off): prefill "
+          f"{SERVE_PROMPT} + {ORACLE_STEPS} decode steps vs one prefill of "
+          f"{SERVE_PROMPT + ORACLE_STEPS}: max abs logit error {err:.3g} (tol {ORACLE_TOL}, "
+          f"max |logit| {scale:.3g})")
+    serve.update(prefill_profile=prof, oracle_err=err, oracle_logit_scale=scale)
+    del serve["timed_tokens"], serve["timed_prompt"]
+    print("serve_path " + json.dumps(serve, default=float))
+
     line = []
-    for k in kernels:
+    main_cases = {name: next(k for k in llm_cases if k["name"] == name) for name in LLM_KERNELS}
+    for k in kernels + [main_cases[name] for name in LLM_KERNELS]:
         line.append({
             "name": k["name"], "route": "cuda", "source": k["source"],
             "replaces": k["replaces"], "launches": launches[k["name"]],

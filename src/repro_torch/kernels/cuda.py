@@ -1,6 +1,8 @@
 """Build, load and count the hand-written CUDA kernels.
 
-The three OLTP kernels live in ``csrc/*.cu`` with a plain C interface.  At
+The kernels live in ``csrc/*.cu`` with a plain C interface: the three OLTP
+kernels and the two of the LLM prefill (flash attention, the chunked SSM
+scan).  At
 first use on a CUDA tensor, :func:`lib` compiles each source with ``nvcc``
 for ``sm_90a`` (one process per source, all started together), links them
 into one shared library under ``build/repro_torch/`` at the repository root,
@@ -27,7 +29,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("seg_reduce.cu", "scatter_max.cu", "validate_sequence.cu")
+SOURCES = ("seg_reduce.cu", "scatter_max.cu", "validate_sequence.cu",
+           "flash_attention.cu", "ssm_scan.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -43,6 +46,8 @@ LAUNCHES: Dict[str, int] = {
     "seg_reduce": 0,
     "ssn_scatter_max": 0,
     "validate_sequence": 0,
+    "flash_attention": 0,
+    "ssm_scan_chunked": 0,
 }
 
 _lock = threading.Lock()
@@ -130,6 +135,12 @@ def lib() -> ctypes.CDLL:
             dll.repro_ssn_scatter_max.restype = i
             dll.repro_validate_sequence.argtypes = [p, p, ll, i, i, p, p, p, p]
             dll.repro_validate_sequence.restype = i
+            meta = ctypes.POINTER(ll)
+            f = ctypes.c_float
+            dll.repro_flash_attention.argtypes = [p, p, p, p, meta, i, i, i, i, f, f, p]
+            dll.repro_flash_attention.restype = i
+            dll.repro_ssm_scan_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, p]
+            dll.repro_ssm_scan_chunked.restype = i
             dll.repro_cuda_error_string.argtypes = [i]
             dll.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = dll

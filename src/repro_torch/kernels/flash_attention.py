@@ -1,0 +1,128 @@
+"""Flash attention forward — the LLM prefill's attention.
+
+:func:`flash_attention_fwd` computes GQA attention over ``q (B, Hq, S, D)``
+and ``k``/``v (B, Hkv, T, D)`` with the causal and sliding-window masks and
+an optional tanh softcap: the function of the reference's Pallas kernel
+``repro/kernels/flash_attention.py::flash_attention_fwd``.  Scores, the
+softmax and the accumulation are float32 whatever the input type; the
+output has q's type.
+
+On a CUDA tensor it launches the hand-written kernel
+(``csrc/flash_attention.cu``: D of 64 or 128, float32 or bfloat16, any S
+and T); on a CPU tensor it runs :func:`flash_attention_plain`, the
+reference's ``attention_ref`` computation in PyTorch ops.  The choice
+follows the tensors' device and nothing else.
+
+Layout: the wrapper takes any strides whose last (head) dim is contiguous
+and passes them to the kernel, so the model hands over ``(B, S, H, D)``
+activations as ``(B, H, S, D)`` views without a copy; the output is
+allocated in q's layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import cuda
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _mask(s: int, t: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
+    q_pos = torch.arange(s, device=device)[:, None]
+    k_pos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= q_pos - k_pos < window
+    return mask
+
+
+def flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain PyTorch attention: the whole ``(S, T)`` score matrix in
+    float32, masked to -1e30, softmax, then ``p @ v`` (``ref.py::
+    attention_ref``)."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kr = k.repeat_interleave(g, dim=1).float()
+    vr = v.repeat_interleave(g, dim=1).float()
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), kr) / math.sqrt(d)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    mask = _mask(s, t, causal, window, q.device)
+    scores = scores.masked_fill(~mask[None, None], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, vr).to(q.dtype)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,      # (B, Hq, S, D)
+    k: torch.Tensor,      # (B, Hkv, T, D)
+    v: torch.Tensor,      # (B, Hkv, T, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Attention forward; returns ``(B, Hq, S, D)`` in q's dtype."""
+    b, hq, s, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"flash_attention: {hq} query heads over {hkv} kv heads")
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError("flash_attention: q, k and v on different devices")
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"flash_attention: the kernel takes head dim 64 or 128, not {d}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name}'s head dim must be contiguous")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be positive, not {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap must be positive, not {softcap}")
+    out = torch.empty_like(q)
+    if out.stride(3) != 1:
+        out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    t = k.shape[2]
+    meta = (ctypes.c_longlong * 17)(
+        b, hq, hkv, s, t,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+    )
+    with torch.cuda.device(dev):
+        err = cuda.lib().repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta,
+            _DTYPES[q.dtype], d, int(causal), int(window or 0),
+            float(softcap or 0.0), 1.0 / math.sqrt(d), cuda.stream_of(out),
+        )
+    cuda.check(err, "flash_attention")
+    cuda.LAUNCHES["flash_attention"] += 1
+    return out

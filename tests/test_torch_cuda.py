@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the
-card, exactly — and the port's kernel mode end to end on the card against
-its own vectorized and scalar modes.
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+card (the OLTP kernels exactly, the LLM kernels within float tolerances),
+the port's kernel mode end to end on the card against its own vectorized
+and scalar modes, and the LLM serve path on the card against the CPU.
 
 These tests import no JAX, so they run on a machine with a CUDA card and
 PyTorch alone:
@@ -21,8 +22,10 @@ from repro_torch.db import ycsb
 from repro_torch.kernels import cuda
 from repro_torch.kernels import ops
 from repro_torch.kernels.batch_occ import seg_reduce_plain, validate_sequence_plain
+from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.ref import scatter_max_ref, seg_reduce_ref
 from repro_torch.kernels.scatter_max import NO_POS, ssn_scatter_max_plain
+from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
 
 
 @pytest.fixture
@@ -145,3 +148,126 @@ def test_kernel_mode_end_to_end_on_the_card(cuda_device, tmp_path):
         o = recover(devs, mode=mode)
         assert (o.data, o.rsne, o.n_replayed, o.n_skipped_uncommitted) == (
             st.data, st.rsne, st.n_replayed, st.n_skipped_uncommitted)
+
+
+# --- the LLM kernels -----------------------------------------------------------
+# Both versions accumulate in float32 in another order, so they agree to
+# float32 rounding; a bfloat16 output may then round one ulp apart (2^-8
+# relative on O(1) values).  The tolerances are the reference's kernel-test
+# ones (tests/test_kernels.py::_tol).
+
+def _ftol(dtype):
+    return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,t,d,causal,window,softcap",
+    [
+        (1, 2, 2, 128, 128, 64, True, None, None),
+        (2, 4, 2, 256, 256, 128, True, None, None),     # GQA, D=128
+        (1, 2, 1, 128, 256, 128, False, None, None),    # bidirectional, T > S
+        (2, 2, 2, 256, 256, 64, True, 64, None),        # sliding window
+        (1, 2, 2, 128, 128, 64, True, None, 30.0),      # softcap
+        (1, 25, 5, 1000, 1000, 64, True, 256, None),    # hymba heads, ragged S
+        (1, 2, 1, 77, 133, 128, False, None, None),     # ragged S and T
+    ],
+)
+def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, s, t, d, causal,
+                                              window, softcap, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(s * t + d)
+    q = torch.randn(b, hq, s, d, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(b, hkv, t, d, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(b, hkv, t, d, generator=g, device=cuda_device).to(dtype)
+    n0 = cuda.LAUNCHES["flash_attention"]
+    got = flash_attention_fwd(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] == n0 + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), **_ftol(dtype))
+
+
+def test_flash_attention_kernel_takes_model_layout(cuda_device):
+    """(B, S, H, D) activations passed as (B, H, S, D) views: no copy, and
+    the output comes back in the same layout."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(2, 200, 10, 64, generator=g, device=cuda_device)
+    k = torch.randn(2, 200, 2, 64, generator=g, device=cuda_device)
+    v = torch.randn(2, 200, 2, 64, generator=g, device=cuda_device)
+    qv, kv, vv = (x.transpose(1, 2) for x in (q, k, v))
+    got = flash_attention_fwd(qv, kv, vv, window=64)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_plain(qv, kv, vv, window=64)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def _ssm_inputs(b, h, s, p, n, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, h, s, p, generator=g, device=dev).to(dtype)
+    dt = 0.01 + 0.19 * torch.rand(b, h, s, generator=g, device=dev)
+    decay = 0.7 + 0.299 * torch.rand(b, h, s, generator=g, device=dev)
+    bm = torch.randn(b, s, n, generator=g, device=dev).to(dtype)
+    cm = torch.randn(b, s, n, generator=g, device=dev).to(dtype)
+    return x, dt, decay, bm, cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,s,p,n",
+    [(1, 2, 128, 16, 8), (2, 3, 64, 32, 16), (1, 1, 256, 8, 4),
+     (2, 25, 1000, 64, 16), (1, 2, 77, 96, 32)],
+)
+def test_ssm_scan_kernel_matches_plain(cuda_device, b, h, s, p, n, dtype):
+    args = _ssm_inputs(b, h, s, p, n, dtype, cuda_device, s + p)
+    n0 = cuda.LAUNCHES["ssm_scan_chunked"]
+    y, st = ssm_scan_chunked(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["ssm_scan_chunked"] == n0 + 1
+    yw, stw = ssm_scan_chunked_plain(*args)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    torch.testing.assert_close(y.float(), yw.float(), **_ftol(dtype))
+    torch.testing.assert_close(st, stw, atol=2e-4, rtol=2e-4)
+
+
+def test_ssm_scan_kernel_takes_model_layout(cuda_device):
+    """(B, S, H, P) activations and (B, S, H) steps as (B, H, S, ...) views."""
+    x, dt, decay, bm, cm = _ssm_inputs(2, 5, 150, 64, 16, torch.float32, cuda_device, 9)
+    xs = x.transpose(1, 2).contiguous().transpose(1, 2)
+    dts = dt.transpose(1, 2).contiguous().transpose(1, 2)
+    ds = decay.transpose(1, 2).contiguous().transpose(1, 2)
+    y, st = ssm_scan_chunked(xs, dts, ds, bm, cm)
+    assert y.transpose(1, 2).is_contiguous()
+    yw, stw = ssm_scan_chunked_plain(x, dt, decay, bm, cm)
+    torch.testing.assert_close(y, yw, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(st, stw, atol=2e-4, rtol=2e-4)
+
+
+def test_llm_serve_path_on_the_card_matches_the_cpu(cuda_device):
+    """Reduced hymba with head dim 64 (the kernel's width), float32, TF32
+    off: the card's prefill (both kernels) and decode steps equal the CPU's
+    (the kernels' plain versions) on the same weights and tokens."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("hymba-1.5b"), head_dim=64, n_heads=4, n_kv_heads=2)
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32).init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device=cuda_device, dtype=torch.float32)
+    gpu.lm.load_state_dict(cpu.lm.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 100)).astype(np.int32))
+    n0 = dict(cuda.LAUNCHES)
+    want, wc = cpu.prefill({"tokens": toks[:, :90]}, 128)
+    got, gc = gpu.prefill({"tokens": toks[:, :90].to(cuda_device)}, 128)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] - n0["flash_attention"] == cfg.n_layers
+    assert cuda.LAUNCHES["ssm_scan_chunked"] - n0["ssm_scan_chunked"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for g, w in zip(gc, wc):
+        for k in w:
+            torch.testing.assert_close(g[k].cpu(), w[k], atol=1e-4, rtol=1e-4)
+    for i in range(90, 100):
+        want, wc = cpu.decode_step(wc, toks[:, i:i + 1], i)
+        got, gc = gpu.decode_step(gc, toks[:, i:i + 1].to(cuda_device), i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

@@ -5,8 +5,9 @@ and its kernel mode never runs quietly on the CPU.
   ``chip_smoke.py`` finds no import of ``jax`` or ``repro``.
 * ``import repro_torch`` (and its main-path modules) in a fresh interpreter
   leaves ``jax`` and ``repro`` out of ``sys.modules``.
-* With no CUDA device, ``BatchOCC(mode="kernel")`` and
-  ``recover(mode="kernel")`` on the default device raise.
+* With no CUDA device, ``BatchOCC(mode="kernel")``,
+  ``recover(mode="kernel")``, ``build_model`` and the serve CLI on the
+  default device raise.
 * The kernel wrappers pick the kernel or the plain version by the tensor's
   device alone: no environment switch exists.
 """
@@ -52,7 +53,12 @@ def test_fresh_import_leaves_jax_and_reference_out():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.db, repro_torch.obs\n"
         "import repro_torch.trace, repro_torch.db.ycsb, repro_torch.kernels.ops\n"
-        "import repro_torch.kernels.ref\n"
+        "import repro_torch.kernels.ref, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.ssm_scan, repro_torch.configs.registry\n"
+        "import repro_torch.models.api, repro_torch.models.weights\n"
+        "import repro_torch.models.serve_llm, repro_torch.launch.serve\n"
+        "from repro_torch.configs.registry import ARCH_NAMES, get_config\n"
+        "[get_config(a) for a in ARCH_NAMES]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -100,7 +106,31 @@ def test_kernel_recover_without_cuda_raises(no_cuda):
     assert recover(devs, mode="vectorized").data == {}
 
 
+def test_llm_entry_points_without_cuda_raise(no_cuda):
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.models.serve_llm import ServeEngine
+    from repro_torch.models.weights import from_reference
+
+    cfg = reduced(get_config("hymba-1.5b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)                                   # default: cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(get_config("hymba-1.5b"), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_reference({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(build_model(cfg))
+    model = build_model(cfg, device="cpu")
+    assert model.device.type == "cpu" and ServeEngine(model).model is model
+
+
 def test_no_environment_switch_in_the_kernel_modules():
-    for name in ("ops.py", "batch_occ.py", "scatter_max.py"):
+    for name in ("ops.py", "batch_occ.py", "scatter_max.py", "flash_attention.py",
+                 "ssm_scan.py", "cuda.py"):
         src = (PORT / "kernels" / name).read_text()
         assert "environ" not in src and "getenv" not in src, name

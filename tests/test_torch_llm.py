@@ -1,0 +1,255 @@
+"""The port's LLM serve path against the reference's, on the CPU.
+
+Reduced ``hymba-1.5b`` (hybrid: sliding-window and full attention layers,
+the Mamba branch) and reduced ``tinyllama-1.1b`` (dense): the reference's
+``Model.init`` draws the weights, ``repro_torch.models.weights.
+from_reference`` carries them over, and both packages run the same
+numpy-seeded tokens: prefill logits and caches (per group, stacked over
+its layers), 8 decode steps, and ``ServeEngine.generate``'s tokens.
+
+Tolerances: float32 weights at 1e-4 (the two sides differ in summation
+order and in the attention and scan algorithms' rounding only); bfloat16
+weights at 3e-2, the tolerance of ``tests/test_decode_oracles.py``, since
+both sides round every matmul output and activation to bfloat16 (2^-8
+relative) on their own.  The reference runs with ``mixer_impl="scan"``
+(per-step recurrence) and ``"chunked"`` (block form); the port always takes
+the chunked kernel's plain version in prefill.  The prompt is 64 tokens,
+longer than the reduced window of 32 (so the window masks bite) and a
+multiple of the chunk (so the reference's chunked form runs).
+"""
+
+import contextlib
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import reduced as jreduced
+from repro.configs.registry import ARCH_NAMES as JARCH_NAMES
+from repro.configs.registry import get_config as jget_config
+from repro.models.api import build_model as jbuild_model
+from repro.models.lm import layer_groups as jlayer_groups
+from repro.models.serve_llm import ServeEngine as JServeEngine
+from repro_torch.configs.base import reduced
+from repro_torch.configs.registry import ARCH_NAMES, get_config
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import lm as tlm
+from repro_torch.models.api import build_model
+from repro_torch.models.common import iter_leaves
+from repro_torch.models.serve_llm import ServeEngine
+from repro_torch.models.weights import from_reference
+
+PROMPT, STEPS, CACHE_LEN = 64, 8, 80
+
+
+def _tol(dtype):
+    return dict(atol=1e-4, rtol=1e-4) if dtype == "float32" else dict(atol=3e-2, rtol=3e-2)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _pair(arch, dtype, seed=1, **overrides):
+    """The reference model with its params, and the port model holding the
+    same params (float32: every leaf cast to float32 on both sides)."""
+    jcfg = jreduced(jget_config(arch), **overrides)
+    jmodel = jbuild_model(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(seed))
+    if dtype == "float32":
+        params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    host = jax.tree.map(np.asarray, params)
+    model = from_reference(host, reduced(get_config(arch), **overrides), device="cpu",
+                           dtype=getattr(torch, dtype))
+    return jmodel, params, model
+
+
+def _assert_caches_close(got, want, tol):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            assert tuple(g[k].shape) == tuple(w[k].shape), k
+            np.testing.assert_allclose(_np(g[k]), _np(w[k]), err_msg=k, **tol)
+
+
+CASES = [("hymba-1.5b", dt, impl) for dt in ("float32", "bfloat16") for impl in ("scan", "chunked")]
+CASES += [("tinyllama-1.1b", dt, "scan") for dt in ("float32", "bfloat16")]
+
+
+def _reference_mode(dtype):
+    """bfloat16: the reference op by op (``jax.disable_jit``), which rounds
+    every op's output to bfloat16 as its model code says and as the port
+    does.  Compiled, XLA fuses chains of bfloat16 elementwise ops and skips
+    their intermediate roundings, which moves the reference's own reduced
+    hymba logits by 0.06 (ROADMAP Queue C)."""
+    return jax.disable_jit() if dtype == "bfloat16" else contextlib.nullcontext()
+
+
+@pytest.mark.parametrize("arch,dtype,impl", CASES)
+def test_prefill_and_decode_match_reference(arch, dtype, impl):
+    with _reference_mode(dtype):
+        _prefill_and_decode(arch, dtype, impl)
+
+
+def _prefill_and_decode(arch, dtype, impl):
+    jmodel, params, model = _pair(arch, dtype, mixer_impl=impl)
+    tol = _tol(dtype)
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, 256, (2, PROMPT + STEPS)).astype(np.int32)
+
+    jlogits, jcache = jmodel.prefill(params, {"tokens": jnp.asarray(toks[:, :PROMPT])},
+                                     cache_len=CACHE_LEN)
+    logits, cache = model.prefill({"tokens": torch.from_numpy(toks[:, :PROMPT])}, CACHE_LEN)
+    assert logits.dtype == getattr(torch, dtype) and logits.shape == (2, 1, 256)
+    np.testing.assert_allclose(_np(logits), _np(jlogits), **tol)
+    _assert_caches_close(cache, jcache, tol)
+
+    for i in range(PROMPT, PROMPT + STEPS):
+        jlogits, jcache = jmodel.decode_step(params, jcache, jnp.asarray(toks[:, i:i + 1]),
+                                             jnp.asarray(i, jnp.int32))
+        logits, cache = model.decode_step(cache, torch.from_numpy(toks[:, i:i + 1]), i)
+        np.testing.assert_allclose(_np(logits), _np(jlogits), err_msg=f"step {i}", **tol)
+    _assert_caches_close(cache, jcache, tol)
+
+
+@pytest.mark.parametrize("arch,dtype", [("hymba-1.5b", "float32"), ("hymba-1.5b", "bfloat16"),
+                                        ("tinyllama-1.1b", "float32"),
+                                        ("tinyllama-1.1b", "bfloat16")])
+def test_generate_tokens_match_reference(arch, dtype):
+    jmodel, params, model = _pair(arch, dtype, seed=3, mixer_impl="chunked")
+    toks = np.random.default_rng(11).integers(0, 256, (3, PROMPT)).astype(np.int32)
+    with _reference_mode(dtype):
+        want = JServeEngine(jmodel, params, cache_len=CACHE_LEN).generate(
+            {"tokens": jnp.asarray(toks)}, max_new=10)
+    got = ServeEngine(model, cache_len=CACHE_LEN).generate({"tokens": torch.from_numpy(toks)},
+                                                           max_new=10)
+    assert got.tokens.shape == (3, 10) and got.tokens.dtype == np.int32
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+    assert got.prefill_s > 0 and got.decode_s > 0 and got.tokens_per_s > 0
+
+
+# --- the reference's ring-cache divergence, pinned --------------------------------
+
+def _continuation(jmodel, params, model, toks, prompt, cache_len):
+    """Prefill ``prompt`` tokens, decode the rest one by one; returns each
+    package's final logits."""
+    total = toks.shape[1]
+    jl, jc = jmodel.prefill(params, {"tokens": jnp.asarray(toks[:, :prompt])}, cache_len=cache_len)
+    tl, tc = model.prefill({"tokens": torch.from_numpy(toks[:, :prompt])}, cache_len)
+    for i in range(prompt, total):
+        jl, jc = jmodel.decode_step(params, jc, jnp.asarray(toks[:, i:i + 1]),
+                                    jnp.asarray(i, jnp.int32))
+        tl, tc = model.decode_step(tc, torch.from_numpy(toks[:, i:i + 1]), i)
+    return _np(jl)[:, 0], _np(tl)[:, 0]
+
+
+def test_ring_cache_divergence_is_the_references():
+    """``_attn_prefill`` stores the last ``cache_len`` keys in slots
+    ``0..C-1`` while ``_attn_decode`` reads position p at slot ``p % C``.
+    With prompt 11 > cache_len 8 (not a multiple), decoding after a prefill
+    no longer equals one long prefill — in the reference and, by design, in
+    the port, which matches it.  With prompt <= cache_len both agree with
+    the long prefill."""
+    over = dict(sliding_window=8, full_attn_layers=())
+    jmodel, params, model = _pair("hymba-1.5b", "float32", seed=2, **over)
+    toks = np.random.default_rng(5).integers(0, 256, (1, 14)).astype(np.int32)
+    jfull, _ = jmodel.prefill(params, {"tokens": jnp.asarray(toks)}, cache_len=8)
+    tfull, _ = model.prefill({"tokens": torch.from_numpy(toks)}, 8)
+    full = _np(jfull)[:, 0]
+    np.testing.assert_allclose(_np(tfull)[:, 0], full, atol=1e-4, rtol=1e-4)
+
+    jl, tl = _continuation(jmodel, params, model, toks, prompt=11, cache_len=8)
+    np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=1e-4)     # port == reference
+    assert np.abs(jl - full).max() > 0.1                          # both diverge
+    assert np.abs(tl - full).max() > 0.1
+
+    for prompt in (6, 8):
+        jl, tl = _continuation(jmodel, params, model, toks, prompt=prompt, cache_len=8)
+        np.testing.assert_allclose(jl, full, atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(tl, full, atol=1e-4, rtol=1e-4)
+
+
+# --- configs, specs and families ----------------------------------------------------
+
+@pytest.mark.parametrize("arch", JARCH_NAMES)
+def test_configs_and_groups_are_the_references(arch):
+    assert ARCH_NAMES == JARCH_NAMES
+    for make_j, make_t in ((lambda c: c, lambda c: c), (jreduced, reduced)):
+        jcfg, cfg = make_j(jget_config(arch)), make_t(get_config(arch))
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        assert cfg.n_params() == jcfg.n_params() and cfg.hd == jcfg.hd
+        assert [dataclasses.astuple(g) for g in tlm.layer_groups(cfg)] == \
+               [dataclasses.astuple(g) for g in jlayer_groups(jcfg)]
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "tinyllama-1.1b", "qwen2-1.5b", "stablelm-12b",
+                                  "deepseek-7b"])
+def test_param_and_cache_specs_are_the_references(arch):
+    from repro.models.lm import cache_specs as jcache_specs
+    from repro.models.lm import param_specs as jparam_specs
+
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    for got, want in ((tlm.param_specs(cfg), jparam_specs(jcfg)),
+                      (tlm.cache_specs(cfg, 4, 4096), jcache_specs(jcfg, 4, 4096))):
+        got, want = dict(iter_leaves(got)), dict(iter_leaves(want))
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            g = got[k]
+            assert (g.shape, g.logical, g.init, g.init_scale) == \
+                   (w.shape, w.logical, w.init, w.init_scale), k
+            assert str(g.dtype).split(".")[-1] == np.dtype(w.dtype).name, k
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "rwkv6-7b", "whisper-medium",
+                                  "llava-next-mistral-7b", "grok-1-314b"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotImplementedError):
+        build_model(reduced(get_config(arch)), device="cpu")
+
+
+def test_reduced_qwen2_with_qkv_bias_matches_reference():
+    """The dense family's options: QKV bias and a non-default RoPE theta."""
+    jmodel, params, model = _pair("qwen2-1.5b", "float32")
+    toks = np.random.default_rng(2).integers(0, 256, (2, 20)).astype(np.int32)
+    jl, tl = _continuation(jmodel, params, model, toks, prompt=12, cache_len=32)
+    np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=1e-4)
+
+
+def test_seeded_init_draws_the_reference_distributions():
+    cfg = reduced(get_config("hymba-1.5b"))
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    model.init(torch.Generator().manual_seed(0))
+    lm = model.lm
+    assert torch.all(lm.final_norm.scale == 1)
+    blk = lm.blocks[0]
+    assert torch.all(blk.ssm.dt_bias == 0) and torch.all(blk.ssm.d_skip == 1)
+    assert torch.all((blk.ssm.a_log <= -0.5) & (blk.ssm.a_log > -1.5))
+    std = float(blk.attn.wq.std())
+    assert abs(std - 1 / np.sqrt(cfg.d_model)) < 0.2 / np.sqrt(cfg.d_model)
+    again = build_model(cfg, device="cpu", dtype=torch.float32).init(torch.Generator().manual_seed(0))
+    assert all(torch.equal(a, b) for a, b in zip(lm.parameters(), again.lm.parameters()))
+
+
+def test_serve_cli_runs_reduced_on_the_cpu(capsys):
+    assert serve_cli.main(["--arch", "hymba-1.5b", "--device", "cpu", "--reduced",
+                           "--batch", "2", "--prompt-len", "40", "--max-new", "4",
+                           "--cache-len", "64"]) == 0
+    out = capsys.readouterr().out
+    assert "arch=hymba-1.5b" in out and "device=cpu" in out and "tok/s" in out
+
+
+def test_cast_to_float32_keeps_every_value():
+    cfg = reduced(get_config("hymba-1.5b"))
+    model = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(4))
+    wide = model.cast(torch.float32)
+    assert model.dtype == torch.bfloat16 and wide.dtype == torch.float32
+    for (name, p), (name2, q) in zip(model.lm.named_parameters(), wide.lm.named_parameters()):
+        assert name == name2 and q.dtype == torch.float32
+        assert torch.equal(p.float(), q), name
+    assert model.lm.blocks[0].ssm.a_log.dtype == torch.float32     # declared float32

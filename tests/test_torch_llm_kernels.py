@@ -1,0 +1,168 @@
+"""The port's LLM kernels' plain versions against the reference's kernels.
+
+Each plain PyTorch version (what the port's wrappers run for CPU tensors)
+is held against the JAX package's Pallas kernel in interpret mode and its
+``ref.py`` oracle on the same numpy-seeded inputs, over the sweep of
+``tests/test_kernels.py``, at that file's tolerances (``_tol``: 2e-4 for
+float32; 2e-2 for bfloat16, whose inputs carry ~3 decimal digits while
+both sides accumulate in float32).  Beyond the reference's sweep: the
+hymba head dim 64, and S and T that are not multiples of any block, which
+the port's kernels take and the TPU kernels do not.
+
+The cases that hold each hand-written kernel against its plain version on
+the card are in ``test_torch_cuda.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_fwd as jflash
+from repro.kernels.ref import attention_ref, ssm_scan_ref
+from repro.kernels.ssm_scan import ssm_scan_chunked as jssm
+from repro_torch.kernels import cuda
+from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
+
+TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+
+
+def _tol(dtype):
+    return dict(atol=2e-2, rtol=2e-2) if dtype == jnp.bfloat16 else dict(atol=2e-4, rtol=2e-4)
+
+
+def _pair(a, dtype):
+    """The same values as a JAX array and a torch tensor of one dtype."""
+    j = jnp.asarray(a, dtype)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(TORCH[dtype])
+
+
+def _np(t):
+    return t.float().numpy()
+
+
+# --- flash attention ------------------------------------------------------------
+
+SWEEP = [
+    (1, 2, 2, 128, 128, 128, True, None, None),
+    (2, 4, 2, 256, 256, 128, True, None, None),    # GQA
+    (1, 2, 1, 128, 256, 128, False, None, None),   # bidir, longer kv
+    (2, 2, 2, 256, 256, 128, True, 64, None),      # sliding window
+    (1, 2, 2, 128, 128, 128, True, None, 30.0),    # grok softcap
+    (1, 8, 2, 384, 384, 128, True, 128, None),     # window + GQA
+]
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,window,softcap", SWEEP)
+def test_flash_attention_plain_matches_pallas(b, hq, hkv, s, t, d, causal, window,
+                                              softcap, dtype):
+    rng = np.random.default_rng(s * 7 + t + hq)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.normal(0, 1, shape), dtype)
+        for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_attention_plain(qt, kt, vt, **kw)
+    assert got.dtype == TORCH[dtype] and got.shape == (b, hq, s, d)
+    pallas = np.asarray(jflash(qj, kj, vj, interpret=True, **kw).astype(jnp.float32))
+    oracle = np.asarray(attention_ref(qj, kj, vj, **kw).astype(jnp.float32))
+    np.testing.assert_allclose(_np(got), pallas, **_tol(dtype))
+    np.testing.assert_allclose(_np(got), oracle, **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize(
+    "b,hq,hkv,s,t,causal,window",
+    [
+        (2, 25, 5, 128, 128, True, None),     # hymba heads, D = 64
+        (1, 25, 5, 200, 200, True, 64),       # ragged S, window
+        (1, 4, 2, 77, 133, False, None),      # ragged S and T, bidir
+        (1, 4, 1, 100, 100, True, 1),         # window 1: attends itself only
+    ],
+)
+def test_flash_attention_plain_head_dim_64_and_ragged(b, hq, hkv, s, t, causal, window, dtype):
+    rng = np.random.default_rng(s + t)
+    d = 64
+    (qj, qt), (kj, kt), (vj, vt) = (
+        _pair(rng.normal(0, 1, shape), dtype)
+        for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+    got = flash_attention_plain(qt, kt, vt, causal=causal, window=window)
+    oracle = attention_ref(qj, kj, vj, causal=causal, window=window)
+    np.testing.assert_allclose(_np(got), np.asarray(oracle.astype(jnp.float32)), **_tol(dtype))
+
+
+def test_flash_attention_wrapper_runs_plain_on_cpu_tensors():
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (1, 4, 50, 16)).astype(np.float32))
+               for _ in range(3))
+    before = dict(cuda.LAUNCHES)
+    got = flash_attention_fwd(q, k[:, :2], v[:, :2], window=8)
+    assert cuda.LAUNCHES == before
+    assert torch.equal(got, flash_attention_plain(q, k[:, :2], v[:, :2], window=8))
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, k[:, :3], v[:, :3])       # 4 heads over 3
+
+
+# --- chunked SSM scan -------------------------------------------------------------
+
+def _ssm_inputs(b, h, s, p, n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = _pair(rng.normal(0, 1, (b, h, s, p)), dtype)
+    dt = _pair(rng.uniform(0.01, 0.2, (b, h, s)), jnp.float32)
+    decay = _pair(rng.uniform(0.7, 0.999, (b, h, s)), jnp.float32)
+    bm = _pair(rng.normal(0, 1, (b, s, n)), dtype)
+    cm = _pair(rng.normal(0, 1, (b, s, n)), dtype)
+    return [a[0] for a in (x, dt, decay, bm, cm)], [a[1] for a in (x, dt, decay, bm, cm)]
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,s,p,n,chunk",
+    [(1, 2, 128, 16, 8, 64), (2, 3, 64, 32, 16, 32), (1, 1, 256, 8, 4, 64)],
+)
+def test_ssm_scan_plain_matches_pallas(b, h, s, p, n, chunk, dtype):
+    jargs, targs = _ssm_inputs(b, h, s, p, n, dtype, s + p + n)
+    y, st = ssm_scan_chunked_plain(*targs, chunk=chunk)
+    assert y.dtype == TORCH[dtype] and st.dtype == torch.float32
+    yp, stp = jssm(*jargs, chunk=chunk, interpret=True)
+    yr, str_ = ssm_scan_ref(*jargs)
+    st_tol = dict(atol=5e-2, rtol=5e-2) if dtype == jnp.bfloat16 else dict(atol=2e-4, rtol=2e-4)
+    for want_y, want_st in ((yp, stp), (yr, str_)):
+        np.testing.assert_allclose(_np(y), np.asarray(want_y.astype(jnp.float32)), **_tol(dtype))
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_st), **st_tol)
+
+
+@pytest.mark.parametrize("s", [1, 63, 65, 100, 200])
+def test_ssm_scan_plain_ragged_padding_is_exact(s):
+    """A ragged S is padded with dt = 0 and decay = 1: u = 0 and the state
+    carries unchanged, so the result is the naive scan's over S steps, and
+    bit-equal to padding the inputs by hand."""
+    b, h, p, n = 2, 3, 16, 8
+    jargs, (x, dt, decay, bm, cm) = _ssm_inputs(b, h, s, p, n, jnp.float32, s)
+    y, st = ssm_scan_chunked_plain(x, dt, decay, bm, cm)
+    yr, str_ = ssm_scan_ref(*jargs)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(str_), atol=2e-4, rtol=2e-4)
+
+    pad = (-s) % 64
+    rng = np.random.default_rng(1)
+    junk = lambda *shape: torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+    xp = torch.cat([x, junk(b, h, pad, p)], dim=2)          # any x: u = dt * x = 0
+    dtp = torch.cat([dt, torch.zeros(b, h, pad)], dim=2)
+    dp = torch.cat([decay, torch.ones(b, h, pad)], dim=2)
+    bp = torch.cat([bm, junk(b, pad, n)], dim=1)
+    cp = torch.cat([cm, junk(b, pad, n)], dim=1)
+    y2, st2 = ssm_scan_chunked_plain(xp, dtp, dp, bp, cp)
+    assert torch.equal(y2[:, :, :s], y) and torch.equal(st2, st)
+
+
+def test_ssm_scan_wrapper_runs_plain_on_cpu_tensors():
+    _, args = _ssm_inputs(1, 2, 70, 8, 4, jnp.float32, 5)
+    before = dict(cuda.LAUNCHES)
+    got = ssm_scan_chunked(*args)
+    assert cuda.LAUNCHES == before
+    for g, w in zip(got, ssm_scan_chunked_plain(*args)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        ssm_scan_chunked(args[0], args[1][:, :, :5], *args[2:])
