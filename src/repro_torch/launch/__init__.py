@@ -1,1 +1,1 @@
-# Command-line drivers: serve.py (batched prefill + greedy decode).
+# Command-line entry points: serve.py (batched prefill + greedy decode).

@@ -1,4 +1,4 @@
-"""Serving driver: batched prefill + greedy decode.
+"""Serving entry point: batched prefill + greedy decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
