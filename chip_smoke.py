@@ -114,10 +114,14 @@ ARCH = "hymba-1.5b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, CACHE_LEN = 8, 2048, 64, 4096
 RAGGED_BATCH, RAGGED_PROMPT = 2, 1000
 ORACLE_STEPS = 16
-# kernel vs plain on the card: both accumulate in float32 in another order;
-# a bfloat16 output may round one ulp apart (2^-8 relative on O(1) values).
-# The reference's kernel-test tolerances (tests/test_kernels.py::_tol).
-LLM_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-4}
+# kernel vs plain on the card, as (atol, rtol): both compute in float32 from
+# the same inputs in another order.  float32: the reference's kernel-test
+# tolerance (tests/test_kernels.py::_tol); measured on the H100 up to 1.6e-6.
+# bfloat16: the two float32 results round at most one bf16 ulp apart, and
+# one ulp is at most 2^-7 |w|; 1e-3 absolute covers the float32 differences
+# near zero.  Measured on the H100: 0.0039 (attention, |w| < 1) and 0.031
+# (scan, |w| in [4, 8)), each one ulp.
+LLM_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (2e-4, 2e-4)}
 # the full-width float32 continuation oracle.  Measured on the H100:
 # 4.8e-5 with logits up to 4.1, where the two sides differ only in float32
 # summation order through 32 layers.  1e-3 keeps 20x of headroom and still
@@ -340,10 +344,10 @@ def check_kernels(seed: int):
 
 def _close(got, want, dtype):
     """Max abs error, asserted within LLM_TOL (absolute plus relative)."""
-    tol = LLM_TOL[dtype]
+    atol, rtol = LLM_TOL[dtype]
     g, w = got.float(), want.float()
     err = float((g - w).abs().max())
-    bad = int(((g - w).abs() > tol + tol * w.abs()).sum())
+    bad = int(((g - w).abs() > atol + rtol * w.abs()).sum())
     assert bad == 0 and torch.isfinite(g).all(), (err, bad)
     return err
 
@@ -824,7 +828,7 @@ def main(argv=None) -> int:
     llm_cases = check_llm_kernels(args.seed)
     for k in llm_cases:
         print(f"kernel {k['name']} ({k['shape']}): max abs err {k['max_abs_err']:.3g} "
-              f"(atol = rtol = {k['tol']}); {k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
+              f"(atol {k['tol'][0]}, rtol {k['tol'][1]}); {k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound'][0]:.4f} ms ({k['bound'][1]})"
               f", library {k['library_ms']} ms | {smi}")
     print("llm_kernel_cases " + json.dumps(llm_cases, default=float))

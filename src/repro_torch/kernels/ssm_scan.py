@@ -91,8 +91,6 @@ def ssm_scan_chunked(
     decay: torch.Tensor,   # (B, H, S)   a_t = exp(-exp(A) dt_t) in (0, 1)
     bmat: torch.Tensor,    # (B, S, N)
     cmat: torch.Tensor,    # (B, S, N)
-    *,
-    chunk: int = DEFAULT_CHUNK,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(y (B, H, S, P), final state (B, H, P, N))``."""
     b, h, s, p = x.shape
@@ -107,11 +105,9 @@ def ssm_scan_chunked(
     if any(t.device != dev for t in (dt, decay, bmat, cmat)):
         raise ValueError("ssm_scan: inputs on different devices")
     if dev.type == "cpu":
-        return ssm_scan_chunked_plain(x, dt, decay, bmat, cmat, chunk=chunk)
+        return ssm_scan_chunked_plain(x, dt, decay, bmat, cmat)
     if dev.type != "cuda":
         raise ValueError(f"ssm_scan: unsupported device {dev}")
-    if chunk != DEFAULT_CHUNK:
-        raise ValueError(f"ssm_scan: the kernel's chunk is {DEFAULT_CHUNK}, not {chunk}")
     if x.dtype not in _DTYPES or bmat.dtype != x.dtype or cmat.dtype != x.dtype:
         raise TypeError(f"ssm_scan: x/B/C must share float32 or bfloat16, got "
                         f"{x.dtype}, {bmat.dtype}, {cmat.dtype}")

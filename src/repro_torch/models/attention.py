@@ -63,29 +63,20 @@ def decode_attend(
     q: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
-    cur_len: int,
+    valid: torch.Tensor,
     *,
-    tail_valid: int = 0,
-    valid_mask: Optional[torch.Tensor] = None,
     logit_softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-step decode attention against a cache.
 
-    q: (B, 1, H, D); caches: (B, W, Hkv, D); ``cur_len``: number of valid
-    cache entries counted from the front.  ``tail_valid``: the last n slots
-    are always valid (the current token appended after the cache).
-    ``valid_mask``: per-slot validity (overrides ``cur_len``)."""
+    q: (B, 1, H, D); caches: (B, W, Hkv, D); ``valid``: (W,) bool, the
+    slots that take part."""
     b, _, h, d = q.shape
-    w = k_cache.shape[1]
     n_kv = k_cache.shape[2]
     scale = 1.0 / math.sqrt(d)
     qg = _split_gqa(q, n_kv)[:, 0] * scale                     # (B, n_kv, G, D)
     scores = torch.einsum("bngd,bcnd->bngc", qg.float(), k_cache.float())
     scores = _softcap(scores, logit_softcap)
-    idx = torch.arange(w, device=q.device)
-    valid = valid_mask if valid_mask is not None else idx < cur_len
-    if tail_valid:
-        valid = valid | (idx >= w - tail_valid)
     scores = scores.masked_fill(~valid[None, None, None, :], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngc,bcnd->bngd", p, v_cache.float())

@@ -168,9 +168,8 @@ def _attn_decode(cfg: ArchConfig, p, x, cache, pos: int, window):
     if window is not None:
         slot_pos = pos - 1 - torch.remainder(pos - 1 - idx, w)
         valid = valid & (pos - slot_pos < window)
-    valid = torch.cat([valid, torch.zeros(1, dtype=torch.bool, device=dev)])  # self via tail_valid
-    out = decode_attend(q, k_all, v_all, min(pos, w), tail_valid=1,
-                        valid_mask=valid, logit_softcap=cfg.attn_softcap)
+    valid = torch.cat([valid, torch.ones(1, dtype=torch.bool, device=dev)])  # the current token
+    out = decode_attend(q, k_all, v_all, valid, logit_softcap=cfg.attn_softcap)
     y = out.reshape(b, 1, -1) @ p.wo
     slot = pos % w
     cache["k"][:, slot] = k[:, 0]

@@ -151,13 +151,13 @@ def test_kernel_mode_end_to_end_on_the_card(cuda_device, tmp_path):
 
 
 # --- the LLM kernels -----------------------------------------------------------
-# Both versions accumulate in float32 in another order, so they agree to
-# float32 rounding; a bfloat16 output may then round one ulp apart (2^-8
-# relative on O(1) values).  The tolerances are the reference's kernel-test
-# ones (tests/test_kernels.py::_tol).
+# Both versions compute in float32 from the same inputs in another order, so
+# they agree to float32 rounding (the reference's kernel-test tolerance,
+# tests/test_kernels.py::_tol); a bfloat16 output may then round one ulp
+# apart, which is at most 2^-7 of its magnitude.
 
 def _ftol(dtype):
-    return dict(atol=2e-2, rtol=2e-2) if dtype == torch.bfloat16 else dict(atol=2e-4, rtol=2e-4)
+    return dict(atol=1e-3, rtol=2.0 ** -7) if dtype == torch.bfloat16 else dict(atol=2e-4, rtol=2e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
