@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It puts ``src`` on ``sys.path`` itself, builds the five ``sm_90a`` kernels
+It puts ``src`` on ``sys.path`` itself, builds the six ``sm_90a`` kernels
 from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
 together), and then:
 
@@ -16,8 +16,10 @@ together), and then:
    the same function, where there is one: the three OLTP kernels exactly;
    flash attention (hymba's prefill shape, B=8, S=T=2048, 25 query and 5 KV
    heads of 64, full and window 1024, bfloat16 and float32, plus a ragged
-   S=1000) and the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
-   and bfloat16, plus S=1000) within stated tolerances;
+   S=1000), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
+   and bfloat16, plus S=1000) and the chunked wkv6 recurrence (rwkv6-7b's
+   prefill shape, B=8, H=64, S=2048, K=V=64, float32 and bfloat16, plus
+   S=1000) within stated tolerances;
 3. drives the OLTP main path: YCSB (paper §6.2, one table, key plus 10
    columns of 100 B) with 1,000,000 rows through ``BatchOCC(mode="kernel")``
    onto four path-backed SSD devices, alternating write-only and hybrid
@@ -27,13 +29,15 @@ together), and then:
 4. recovers with ``recover(mode="kernel")`` and holds it equal to the
    vectorized and scalar modes and to every drained write, and replays the
    logs against the checkpoint through ``replay_columnar(use_kernel=True)``;
-5. drives the LLM serve path: ``hymba-1.5b`` at full width in bfloat16 with
-   seeded random weights, one ``ServeEngine`` (cache 4096) answering a
-   warm-up and a timed request of 8 prompts x 2048 tokens and one of
-   2 x 1000 tokens, 64 new tokens each; asserts finite logits and 32
-   launches of each LLM kernel per prefill, and profiles one more prefill;
-6. checks the serve path at full width in float32 (TF32 off): a prefill of
-   2048 tokens plus 16 decode steps against one prefill of all 2064;
+5. drives the LLM serve path for ``hymba-1.5b`` and then ``rwkv6-7b``, each
+   at full width and depth in bfloat16 with seeded random weights: one
+   ``ServeEngine`` (cache 4096) answering a warm-up and a timed request of
+   8 prompts x 2048 tokens and one of 2 x 1000 tokens, 64 new tokens each;
+   asserts finite logits and 32 launches per prefill of each of the arch's
+   kernels (flash attention and the scan for hymba, wkv6 for rwkv6) and
+   none of the others, and profiles one more prefill and 8 decode steps;
+6. checks each serve path at full width in float32 (TF32 off): a prefill
+   of 2048 tokens plus 16 decode steps against one prefill of all 2064;
 7. asserts that every kernel launched on its own path (each path's counts
    set to 0 just before it and read just after);
 8. prints throughput, recovery and serving times beside the card's name and
@@ -79,6 +83,7 @@ from repro_torch.kernels.batch_occ import (
     validate_sequence_plain,
 )
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
 from repro_torch.kernels.scatter_max import NO_POS, ssn_scatter_max, ssn_scatter_max_plain
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
 from repro_torch.configs.registry import get_config
@@ -106,11 +111,14 @@ TORN_VALUE = b"TORN-VALUE-NEVER-COMMITTED"
 DECLINES = ("occ.fused.decline.small_batch", "occ.fused.decline.dense_padding",
             "occ.fused.decline.i32_range")
 OLTP_KERNELS = ("validate_sequence", "ssn_scatter_max", "seg_reduce")
-LLM_KERNELS = ("flash_attention", "ssm_scan_chunked")
-# the LLM serve path: hymba-1.5b at full width (32 layers, d_model 1600,
-# 25 query / 5 KV heads of 64, window 1024 with full attention at layers
-# 0, 16 and 31, a 25-head Mamba branch of state 16)
-ARCH = "hymba-1.5b"
+LLM_KERNELS = ("flash_attention", "ssm_scan_chunked", "rwkv6_chunked")
+# the LLM serve paths, each with the kernels its prefill launches once per
+# layer: hymba-1.5b at full width (32 layers, d_model 1600, 25 query / 5 KV
+# heads of 64, window 1024 with full attention at layers 0, 16 and 31, a
+# 25-head Mamba branch of state 16), then rwkv6-7b (32 layers, d_model
+# 4096, 64 wkv heads of 64, d_ff 14336, vocab 65536)
+SERVE_ARCHS = (("hymba-1.5b", ("flash_attention", "ssm_scan_chunked")),
+               ("rwkv6-7b", ("rwkv6_chunked",)))
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, CACHE_LEN = 8, 2048, 64, 4096
 RAGGED_BATCH, RAGGED_PROMPT = 2, 1000
 ORACLE_STEPS = 16
@@ -120,12 +128,14 @@ ORACLE_STEPS = 16
 # bfloat16: the two float32 results round at most one bf16 ulp apart, and
 # one ulp is at most 2^-7 |w|; 1e-3 absolute covers the float32 differences
 # near zero.  Measured on the H100: 0.0039 (attention, |w| < 1) and 0.031
-# (scan, |w| in [4, 8)), each one ulp.
+# (scan and wkv6, |w| in [4, 8)), each one ulp.
 LLM_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (2e-4, 2e-4)}
 # the full-width float32 continuation oracle.  Measured on the H100:
 # 4.8e-5 with logits up to 4.1, where the two sides differ only in float32
 # summation order through 32 layers.  1e-3 keeps 20x of headroom and still
 # fails any stage computed in bfloat16 (2^-8 relative: ~1.6e-2 at 4.1).
+# The same limit holds for rwkv6-7b, whose layer-normed logits are of the
+# same scale: measured 3.5e-4 with logits up to 4.45.
 ORACLE_TOL = 1e-3
 # the executing thread's stages of one BatchOCC call (trace/span.py)
 BATCH_STAGES = (tspan.ST_VALIDATE, tspan.ST_SEQUENCE, tspan.ST_ENCODE,
@@ -422,10 +432,48 @@ def _ssm_case(gen, b, s, dtype, dev):
     )
 
 
+def _rwkv6_flops(b, h, s, kd, vd, c=32):
+    """The block form's flops at chunk c: per chunk and head, the state
+    term and the state update (2cKV each), A's lower triangle (4 per pair
+    and channel: the exponent's difference, two products, the sum; the exp
+    aside) and diagonal (3 per channel), and A v over s <= t; chunks
+    counted as s / c, the steps this input has."""
+    per_chunk = 4 * c * kd * vd + 2 * c * (c - 1) * kd + 3 * c * kd + c * (c + 1) * vd
+    return int(b * h * per_chunk * s / c)
+
+
+def _rwkv6_case(gen, b, s, dtype, dev):
+    h, kd = 64, 64
+    # the model's (B, S, H, K) activations as (B, H, S, K) views; w as the
+    # model draws it, exp(-exp(w0 + lora)) in about (0.5, 1)
+    r, k, v = ((0.5 * torch.randn(b, s, h, kd, generator=gen, device=dev)).to(dtype).transpose(1, 2)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(-1.5 + torch.rand(b, s, h, kd, generator=gen, device=dev))).transpose(1, 2)
+    u = 0.125 * torch.randn(h, kd, generator=gen, device=dev)
+    args = (r, k, v, w, u)
+    y, st = rwkv6_chunked(*args)
+    torch.cuda.synchronize()
+    yw, stw = rwkv6_chunked_plain(*args)
+    err = max(_close(y, yw, dtype), _close(st, stw, torch.float32))
+    esz = r.element_size()
+    nbytes = esz * 4 * b * h * s * kd + 4 * b * h * s * kd + 4 * h * kd + 4 * b * h * kd * kd
+    return dict(
+        name="rwkv6_chunked", max_abs_err=err, tol=LLM_TOL[dtype],
+        shape=f"B={b} H={h} S={s} K=V={kd} {str(dtype)[6:]}",
+        ms=_median_ms(lambda: rwkv6_chunked(*args)),
+        device_ms=_per_call_device_ms(lambda: rwkv6_chunked(*args), 5),
+        plain_ms=_median_ms(lambda: rwkv6_chunked_plain(*args), reps=5),
+        bound=_bound(nbytes, _rwkv6_flops(b, h, s, kd, kd), FP32_FLOPS), library_ms=None,
+        source="src/repro_torch/kernels/csrc/rwkv6.cu",
+        replaces="src/repro/kernels/rwkv6.py:89",
+    )
+
+
 def check_llm_kernels(seed: int):
-    """Every case at hymba's prefill shapes; returns all cases, the main
-    path's case of each kernel first (attention: bfloat16 with the window
-    of 29 of the 32 layers; the scan: float32, which the model feeds it)."""
+    """Every case at its serve path's prefill shapes; returns all cases,
+    the main path's case of each kernel first (attention: bfloat16 with the
+    window of 29 of hymba's 32 layers; the scan and wkv6: float32, which
+    the models feed them)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     b, s = SERVE_BATCH, SERVE_PROMPT
@@ -436,6 +484,9 @@ def check_llm_kernels(seed: int):
     cases.append(_ssm_case(gen, b, s, torch.float32, dev))
     cases.append(_ssm_case(gen, b, s, torch.bfloat16, dev))
     cases.append(_ssm_case(gen, RAGGED_BATCH, RAGGED_PROMPT, torch.float32, dev))
+    cases.append(_rwkv6_case(gen, b, s, torch.float32, dev))
+    cases.append(_rwkv6_case(gen, b, s, torch.bfloat16, dev))
+    cases.append(_rwkv6_case(gen, RAGGED_BATCH, RAGGED_PROMPT, torch.float32, dev))
     return cases
 
 
@@ -672,18 +723,23 @@ def run_main_path(workdir, seed=0):
 
 # --- phases 5-6: the LLM serve path ------------------------------------------
 
-def run_serve_path(seed: int, smi: str):
-    """hymba-1.5b at full width in bfloat16: a warm-up request, the timed
-    one, and a ragged one through one ServeEngine.  Returns the
-    measurements and the bfloat16 model."""
+def run_serve_path(arch: str, kernels, seed: int, smi: str):
+    """``arch`` at full width and depth in bfloat16: a warm-up request, the
+    timed one, and a ragged one through one ServeEngine; each prefill must
+    launch each of ``kernels`` once per layer and no other kernel.
+    Returns the measurements and the bfloat16 model."""
     dev = torch.device("cuda")
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     model.init(torch.Generator(device=dev).manual_seed(seed))
     torch.cuda.synchronize()
-    out = {"arch": cfg.name, "n_params": cfg.n_params(), "init_s": time.perf_counter() - t0,
-           "cache_len": CACHE_LEN, "requests": []}
+    # the config's analytic count (the reference's formula) and the model's own
+    out = {"arch": cfg.name, "n_params": cfg.n_params(),
+           "n_params_model": sum(p.numel() for p in model.lm.parameters()),
+           "init_s": time.perf_counter() - t0, "cache_len": CACHE_LEN, "requests": []}
+    print(f"serve {arch}: {out['n_params_model']:,} parameters in the model "
+          f"({out['n_params']:,} by the config's analytic count)")
     finite = []
     prefill, decode = model.prefill, model.decode_step
 
@@ -711,24 +767,22 @@ def run_serve_path(seed: int, smi: str):
         assert len(finite) == SERVE_NEW and all(bool(f) for f in finite), tag
         assert res.tokens.shape == (b, SERVE_NEW)
         assert ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()
-        for name in LLM_KERNELS:    # one prefill, one launch per layer
-            assert launches[name] == cfg.n_layers, (tag, launches)
-        for name in OLTP_KERNELS:
-            assert launches[name] == 0, (tag, launches)
+        for name in LLM_KERNELS + OLTP_KERNELS:    # one prefill, one launch per layer
+            assert launches[name] == (cfg.n_layers if name in kernels else 0), (tag, launches)
         row = dict(request=tag, batch=b, prompt=s, new=SERVE_NEW,
                    prefill_ms=res.prefill_s * 1e3, decode_ms=res.decode_s * 1e3,
                    decode_ms_per_step=res.decode_s * 1e3 / (SERVE_NEW - 1),
                    tok_per_s=res.tokens_per_s,
                    prefill_tok_per_s=b * s / res.prefill_s, launches=launches)
         out["requests"].append(row)
-        print(f"serve {ARCH} {tag}: {b} x {s} tokens + {SERVE_NEW} new: prefill "
+        print(f"serve {arch} {tag}: {b} x {s} tokens + {SERVE_NEW} new: prefill "
               f"{row['prefill_ms']:.1f} ms ({row['prefill_tok_per_s']:.0f} tok/s), decode "
               f"{row['decode_ms']:.1f} ms ({row['decode_ms_per_step']:.2f} ms/step), "
               f"{row['tok_per_s']:.1f} tok/s, launches {launches} | {smi}")
         if tag == "timed":
             out["timed_tokens"], out["timed_prompt"] = res.tokens, tokens
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    model.prefill, model.decode_step = prefill, decode
+    del model.prefill, model.decode_step      # the class's methods again, no cycle
     return out, model
 
 
@@ -744,14 +798,16 @@ def profile_serve(model, tokens, steps: int = 8):
         return logits
 
     logits, rows = _device_ms(_prefill)
-    groups = {"flash_attention": 0.0, "ssm_scan_chunked": 0.0, "gemm": 0.0, "copies": 0.0,
-              "other": 0.0}
+    groups = {"flash_attention": 0.0, "ssm_scan_chunked": 0.0, "rwkv6_chunked": 0.0,
+              "gemm": 0.0, "copies": 0.0, "other": 0.0}
     for key, (ms, _) in rows.items():
         k = key.lower()
         if "flash_fwd" in k:
             groups["flash_attention"] += ms
         elif "ssm_chunked" in k:
             groups["ssm_scan_chunked"] += ms
+        elif "rwkv6_chunked" in k:
+            groups["rwkv6_chunked"] += ms
         elif any(tag in k for tag in ("gemm", "nvjet", "cutlass", "gemv")):
             groups["gemm"] += ms
         elif "emcpy" in k:
@@ -853,28 +909,31 @@ def main(argv=None) -> int:
         print(f"recovery s mode={mode}: {out['recovery'][mode]['seconds']:.3f} | {smi}")
     print("main_path " + json.dumps(out, default=float))
 
-    # the LLM serve path, with its own counts
-    kcuda.reset_launches()
-    serve, model = run_serve_path(args.seed, smi)
-    serve_launches = dict(kcuda.LAUNCHES)
-    for name in LLM_KERNELS:
-        assert serve_launches[name] > 0, f"kernel {name} never launched on the serve path"
-        launches[name] = serve_launches[name]
-    prof = profile_serve(model, serve["timed_prompt"])
-    print(f"prefill {SERVE_BATCH} x {SERVE_PROMPT} under the CUDA profiler: device ms "
-          f"{prof['prefill_device_ms']}, total {prof['prefill_total_ms']:.1f}; decode step: "
-          f"device {prof['decode_device_ms_per_step']:.2f} ms in "
-          f"{prof['decode_host_ms_per_step']:.2f} ms of host clock, "
-          f"{prof['decode_ops_per_step']:.0f} device ops | {smi}")
-    err, scale = run_oracle(model, serve["timed_prompt"][:1],
-                            torch.from_numpy(serve["timed_tokens"][:1]).cuda())
-    print(f"float32 continuation oracle ({ARCH}, full width, TF32 off): prefill "
-          f"{SERVE_PROMPT} + {ORACLE_STEPS} decode steps vs one prefill of "
-          f"{SERVE_PROMPT + ORACLE_STEPS}: max abs logit error {err:.3g} (tol {ORACLE_TOL}, "
-          f"max |logit| {scale:.3g})")
-    serve.update(prefill_profile=prof, oracle_err=err, oracle_logit_scale=scale)
-    del serve["timed_tokens"], serve["timed_prompt"]
-    print("serve_path " + json.dumps(serve, default=float))
+    # the LLM serve paths, one model at a time, each with its own counts
+    for arch, arch_kernels in SERVE_ARCHS:
+        kcuda.reset_launches()
+        serve, model = run_serve_path(arch, arch_kernels, args.seed, smi)
+        serve_launches = dict(kcuda.LAUNCHES)
+        for name in arch_kernels:
+            assert serve_launches[name] > 0, f"kernel {name} never launched on the {arch} path"
+            launches[name] = serve_launches[name]
+        prof = profile_serve(model, serve["timed_prompt"])
+        print(f"{arch} prefill {SERVE_BATCH} x {SERVE_PROMPT} under the CUDA profiler: device "
+              f"ms {prof['prefill_device_ms']}, total {prof['prefill_total_ms']:.1f}; decode "
+              f"step: device {prof['decode_device_ms_per_step']:.2f} ms in "
+              f"{prof['decode_host_ms_per_step']:.2f} ms of host clock, "
+              f"{prof['decode_ops_per_step']:.0f} device ops | {smi}")
+        err, scale = run_oracle(model, serve["timed_prompt"][:1],
+                                torch.from_numpy(serve["timed_tokens"][:1]).cuda())
+        print(f"float32 continuation oracle ({arch}, full width, TF32 off): prefill "
+              f"{SERVE_PROMPT} + {ORACLE_STEPS} decode steps vs one prefill of "
+              f"{SERVE_PROMPT + ORACLE_STEPS}: max abs logit error {err:.3g} (tol {ORACLE_TOL}, "
+              f"max |logit| {scale:.3g})")
+        serve.update(prefill_profile=prof, oracle_err=err, oracle_logit_scale=scale)
+        del serve["timed_tokens"], serve["timed_prompt"], model
+        torch.cuda.empty_cache()
+        serve["allocated_gib_after_free"] = torch.cuda.memory_allocated() / 2**30
+        print("serve_path " + json.dumps(serve, default=float))
 
     line = []
     main_cases = {name: next(k for k in llm_cases if k["name"] == name) for name in LLM_KERNELS}

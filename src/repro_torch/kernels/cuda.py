@@ -1,10 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The kernels live in ``csrc/*.cu`` with a plain C interface: the three OLTP
-kernels and the two of the LLM prefill (flash attention, the chunked SSM
-scan).  At
-first use on a CUDA tensor, :func:`lib` compiles each source with ``nvcc``
-for ``sm_90a`` (one process per source, all started together), links them
+kernels and the three of the LLM prefill (flash attention, the chunked SSM
+scan, the chunked wkv6 recurrence).  At first use on a CUDA tensor,
+:func:`lib` compiles each source with ``nvcc`` for ``sm_90a`` (one process
+per source, all started together), links them
 into one shared library under ``build/repro_torch/`` at the repository root,
 and loads it with ``ctypes``.  The library's file name carries a digest of
 the sources and flags, so an edited source rebuilds and an unchanged one is
@@ -30,7 +30,7 @@ from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("seg_reduce.cu", "scatter_max.cu", "validate_sequence.cu",
-           "flash_attention.cu", "ssm_scan.cu")
+           "flash_attention.cu", "ssm_scan.cu", "rwkv6.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -48,6 +48,7 @@ LAUNCHES: Dict[str, int] = {
     "validate_sequence": 0,
     "flash_attention": 0,
     "ssm_scan_chunked": 0,
+    "rwkv6_chunked": 0,
 }
 
 _lock = threading.Lock()
@@ -141,6 +142,8 @@ def lib() -> ctypes.CDLL:
             dll.repro_flash_attention.restype = i
             dll.repro_ssm_scan_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, p]
             dll.repro_ssm_scan_chunked.restype = i
+            dll.repro_rwkv6_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, p]
+            dll.repro_rwkv6_chunked.restype = i
             dll.repro_cuda_error_string.argtypes = [i]
             dll.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = dll

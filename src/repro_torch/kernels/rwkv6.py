@@ -1,0 +1,142 @@
+"""Chunked wkv6 — the RWKV6 ("Finch") prefill's time-mix recurrence.
+
+:func:`rwkv6_chunked` runs, from a zero state,
+
+    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t);   S_t = diag(w_t) S_{t-1} + k_t^T v_t
+
+in the block form of the reference's Pallas kernel ``repro/kernels/
+rwkv6.py::rwkv6_chunked``: per chunk of 32 steps, with ``Λ = cumsum(log
+max(w, 1e-30))`` along the chunk and ``Λ̄ = Λ − log max(w, 1e-30)``,
+
+    y[t]   = (r_t ⊙ exp(Λ̄_t)) · S_prev + Σ_s A[t, s] v_s
+    A[t,s] = Σ_k r_tk k_sk exp(Λ̄_tk − Λ_sk)  (s < t),   A[t,t] = Σ_k r_tk u_k k_tk
+    S_new  = diag(exp(Λ_last)) S_prev + Σ_s (k_s ⊙ exp(Λ_last − Λ_s))^T v_s
+
+Every exponent is a later-minus-earlier difference, so it stays ≤ 0 under
+any decay; the form is never factored as ``exp(Λ)·exp(−Λ)``, which
+overflows when the decay is strong.  Returns ``y (B, H, S, V)`` in v's
+dtype and the final state ``(B, H, K, V)`` in float32.
+
+Any S is taken: a ragged tail is padded with r = k = v = 0 and w = 1 (log
+decay 0), which leaves y and the state exactly unchanged.
+
+On a CUDA tensor the wrapper launches the hand-written kernel
+(``csrc/rwkv6.cu``: chunk 32, K and V in [1, 64], r/k/v float32 or
+bfloat16 of one type, w and u float32, any strides with a contiguous last
+dim); on a CPU tensor it runs :func:`rwkv6_chunked_plain`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda
+
+CHUNK = 32
+KERNEL_MAX_DIM = 64
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def rwkv6_chunked_plain(
+    r: torch.Tensor,       # (B, H, S, K)
+    k: torch.Tensor,       # (B, H, S, K)
+    v: torch.Tensor,       # (B, H, S, V)
+    w: torch.Tensor,       # (B, H, S, K)   per-channel decay in (0, 1)
+    u: torch.Tensor,       # (H, K)         bonus
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The block form in PyTorch ops, one chunk of ``CHUNK`` steps at a
+    time, after padding S to a multiple of it with r = k = v = 0 and log
+    w = 0."""
+    b, h, s, kd = r.shape
+    vd = v.shape[-1]
+    pad = (-s) % CHUNK
+    rf, kf, vf = r.float(), k.float(), v.float()
+    lraw = torch.log(torch.clamp_min(w.float(), 1e-30))
+    if pad:
+        rf, kf, vf, lraw = (F.pad(t, (0, 0, 0, pad)) for t in (rf, kf, vf, lraw))
+    nc = (s + pad) // CHUNK
+    rc, kc, lc = (t.reshape(b, h, nc, CHUNK, kd) for t in (rf, kf, lraw))
+    vc = vf.reshape(b, h, nc, CHUNK, vd)
+    uf = u.float()[None, :, None, :]                                     # (1,H,1,K)
+    dev = r.device
+    tri = torch.tril(torch.ones(CHUNK, CHUNK, dtype=torch.bool, device=dev), diagonal=-1)
+    eye = torch.eye(CHUNK, dtype=torch.bool, device=dev)
+    state = torch.zeros(b, h, kd, vd, dtype=torch.float32, device=dev)
+    ys = []
+    for c in range(nc):
+        rr, kk, vv, lr = rc[:, :, c], kc[:, :, c], vc[:, :, c], lc[:, :, c]
+        lw = torch.cumsum(lr, dim=2)                                     # (B,H,C,K)
+        lw_excl = lw - lr
+        y_state = (rr * torch.exp(lw_excl)) @ state                      # (B,H,C,V)
+        rel = lw_excl[:, :, :, None, :] - lw[:, :, None, :, :]           # (B,H,t,s,K)
+        decay = torch.where(tri[:, :, None], torch.exp(rel), 0.0)
+        a = (rr[:, :, :, None, :] * kk[:, :, None, :, :] * decay).sum(-1)
+        a_diag = (rr * uf * kk).sum(-1)                                  # (B,H,C)
+        a = a + torch.where(eye, a_diag[..., None], 0.0)
+        y_intra = a @ vv
+        lw_last = lw[:, :, -1:, :]                                       # (B,H,1,K)
+        k_scaled = kk * torch.exp(lw_last - lw)
+        state = torch.exp(lw_last).transpose(-1, -2) * state + k_scaled.transpose(-1, -2) @ vv
+        ys.append(y_state + y_intra)
+    y = torch.cat(ys, dim=2)[:, :, :s]
+    return y.to(v.dtype), state
+
+
+def rwkv6_chunked(
+    r: torch.Tensor,       # (B, H, S, K)
+    k: torch.Tensor,       # (B, H, S, K)
+    v: torch.Tensor,       # (B, H, S, V)
+    w: torch.Tensor,       # (B, H, S, K)
+    u: torch.Tensor,       # (H, K)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns ``(y (B, H, S, V), final state (B, H, K, V))``."""
+    b, h, s, kd = r.shape
+    vd = v.shape[-1]
+    if k.shape != r.shape or w.shape != r.shape or v.shape != (b, h, s, vd):
+        raise ValueError(f"rwkv6: r {tuple(r.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"w {tuple(w.shape)} do not match")
+    if u.shape != (h, kd):
+        raise ValueError(f"rwkv6: u {tuple(u.shape)} is not (H, K) = {(h, kd)}")
+    dev = r.device
+    if any(t.device != dev for t in (k, v, w, u)):
+        raise ValueError("rwkv6: inputs on different devices")
+    if dev.type == "cpu":
+        return rwkv6_chunked_plain(r, k, v, w, u)
+    if dev.type != "cuda":
+        raise ValueError(f"rwkv6: unsupported device {dev}")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6: r/k/v must share float32 or bfloat16, got "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}")
+    if w.dtype != torch.float32 or u.dtype != torch.float32:
+        raise TypeError("rwkv6: w and u must be float32")
+    if not (1 <= kd <= KERNEL_MAX_DIM and 1 <= vd <= KERNEL_MAX_DIM):
+        raise ValueError(f"rwkv6: the kernel takes K and V in [1, {KERNEL_MAX_DIM}], "
+                         f"not K={kd}, V={vd}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"rwkv6: {name}'s last dim must be contiguous")
+    u = u.contiguous()
+    y = torch.empty_like(v)
+    if y.stride(-1) != 1:
+        y = torch.empty(v.shape, dtype=v.dtype, device=dev)
+    state = torch.empty((b, h, kd, vd), dtype=torch.float32, device=dev)
+    meta = (ctypes.c_longlong * 20)(
+        b, h, s, kd, vd,
+        r.stride(0), r.stride(1), r.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        w.stride(0), w.stride(1), w.stride(2),
+        y.stride(0), y.stride(1), y.stride(2),
+    )
+    with torch.cuda.device(dev):
+        err = cuda.lib().repro_rwkv6_chunked(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            y.data_ptr(), state.data_ptr(), meta, _DTYPES[r.dtype], cuda.stream_of(y),
+        )
+    cuda.check(err, "rwkv6_chunked")
+    cuda.LAUNCHES["rwkv6_chunked"] += 1
+    return y, state

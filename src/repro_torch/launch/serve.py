@@ -1,12 +1,13 @@
 """Serving entry point: batched prefill + greedy decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
         --device cpu --reduced
 
-The first runs the full-width model in bfloat16 on the card with weights
-drawn from ``--seed``; the second a reduced same-family config on the CPU
-(the kernels' plain versions).
+The first two run the full-width model in bfloat16 on the card with
+weights drawn from ``--seed``; the third a reduced same-family config on
+the CPU (the kernels' plain versions).
 """
 
 from __future__ import annotations

@@ -14,9 +14,9 @@ or building raises.  ``dtype`` is the type of every weight the reference
 declares as bfloat16 (the default); ``torch.float32`` makes every
 parameter float32.
 
-Families ported so far: ``dense`` and ``hybrid`` (hymba).  The ``moe``,
-``rwkv``, ``enc_dec`` (whisper) and ``vlm`` (llava) families raise
-``NotImplementedError``.
+Families ported so far: ``dense``, ``hybrid`` (hymba) and ``rwkv``
+(rwkv6).  The ``moe``, ``enc_dec`` (whisper) and ``vlm`` (llava) families
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -69,8 +69,7 @@ class Model:
 
 
 def build_model(cfg: ArchConfig, *, device="cuda", dtype: torch.dtype = torch.bfloat16) -> Model:
-    for family, present in (("moe", cfg.moe), ("rwkv", cfg.rwkv),
-                            ("enc_dec", cfg.enc_dec), ("vlm", cfg.vlm)):
+    for family, present in (("moe", cfg.moe), ("enc_dec", cfg.enc_dec), ("vlm", cfg.vlm)):
         if present is not None:
             raise NotImplementedError(
                 f"{cfg.name}: the {family} family is not ported yet")

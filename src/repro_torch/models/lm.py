@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly (dense and hybrid families).
+"""Decoder-only LM assembly (dense, hybrid and rwkv families).
 
 Layers are organized into **groups**, contiguous runs of identical blocks
 (``layer_groups``), exactly as in the reference (``repro/models/lm.py``):
@@ -14,10 +14,11 @@ filled from the last ``cache_len`` tokens (the reference's layout, ring
 divergence included: see ROADMAP Queue C).  The current token's k/v is
 appended logically during the decode attention, then written at slot
 ``pos % W``; the port writes that slot, and the SSM state, into the caches
-in place.
+in place.  An rwkv group keeps no ring: its cache is the constant-size
+decode state (both token shifts and the wkv state), also updated in place.
 
-The ``moe`` and ``rwkv`` mixers, ``train_loss`` and ``chunked_xent`` wait
-for later slices.  The reference's ``constrain`` sharding hints are no-ops
+The ``moe`` mixer, ``train_loss`` and ``chunked_xent`` wait for later
+slices.  The reference's ``constrain`` sharding hints are no-ops
 outside a mesh and are not ported: one card has no mesh.
 """
 
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs.base import ArchConfig
+from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .attention import attend, decode_attend
 from .common import ParamSpec, ParamTree, apply_norm, apply_rope, dense_spec, norm_spec, stack_specs
@@ -81,9 +83,14 @@ def attn_spec(cfg: ArchConfig) -> Dict[str, Any]:
 
 
 def block_spec(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
+    d = cfg.d_model
+    if kind == "rwkv":
+        r = cfg.rwkv
+        s = rwkv_mod.rwkv_spec(d, cfg.d_ff, r.n_heads, r.head_dim, r.decay_lora)
+        return {"ln1": norm_spec(cfg, d), "time": s["time"], "ln2": norm_spec(cfg, d),
+                "channel": s["channel"]}
     if kind not in ("dense", "hymba"):
         raise NotImplementedError(f"{kind} blocks are not ported yet")
-    d = cfg.d_model
     spec: Dict[str, Any] = {
         "ln1": norm_spec(cfg, d), "attn": attn_spec(cfg), "ln2": norm_spec(cfg, d),
         "mlp": mlp_spec(d, cfg.d_ff, style=cfg.mlp_style),
@@ -181,8 +188,9 @@ def _attn_decode(cfg: ArchConfig, p, x, cache, pos: int, window):
 
 class Block(ParamTree):
     """One decoder layer: its parameters (``ln1``, ``attn``, ``ln2``,
-    ``mlp``, and for hymba ``ssm`` and the two branch norms) and its
-    prefill and decode passes."""
+    ``mlp``, and for hymba ``ssm`` and the two branch norms; for rwkv
+    ``ln1``, ``time``, ``ln2``, ``channel``) and its prefill and decode
+    passes."""
 
     def __init__(self, cfg: ArchConfig, g: GroupDef, device, dtype):
         super().__init__(block_spec(cfg, g.kind), device, dtype)
@@ -196,7 +204,21 @@ class Block(ParamTree):
         return 0.5 * (apply_norm(cfg, self.attn_branch_norm, a)
                       + apply_norm(cfg, self.ssm_branch_norm, m))
 
+    def _rwkv(self, x, cache: Optional[Dict[str, torch.Tensor]]):
+        """The rwkv layer from the zero state (``cache=None``, a prefill) or
+        from ``cache``.  Returns (x, the new decode state)."""
+        cfg, r = self.cfg, self.cfg.rwkv
+        xn = apply_norm(cfg, self.ln1, x)
+        y, att_x, wkv = rwkv_mod.time_mix(self.time, xn, cache, r.n_heads, r.head_dim)
+        x = x + y
+        xn2 = apply_norm(cfg, self.ln2, x)
+        prev = xn2.new_zeros(xn2.shape[0], xn2.shape[2]) if cache is None else cache["ffn_x"]
+        y, ffn_x = rwkv_mod.channel_mix(self.channel, xn2, prev)
+        return x + y, {"att_x": att_x, "ffn_x": ffn_x, "wkv": wkv}
+
     def prefill(self, x, positions, cache_len: int):
+        if self.kind == "rwkv":
+            return self._rwkv(x, None)
         cfg = self.cfg
         xn = apply_norm(cfg, self.ln1, x)
         a, cache = _attn_prefill(cfg, self.attn, xn, positions, self.window, cache_len)
@@ -212,6 +234,11 @@ class Block(ParamTree):
     def decode(self, x, cache: Dict[str, torch.Tensor], pos: int):
         """``cache`` holds this layer's views into the group's stacked
         caches; they are updated in place."""
+        if self.kind == "rwkv":
+            x, new = self._rwkv(x, cache)
+            for k, t in new.items():
+                cache[k].copy_(t)
+            return x
         cfg = self.cfg
         xn = apply_norm(cfg, self.ln1, x)
         a = _attn_decode(cfg, self.attn, xn, cache, pos, self.window)
@@ -233,9 +260,19 @@ def group_cache_spec(cfg: ArchConfig, g: GroupDef, batch: int, cache_len: int) -
     """Stacked (over layers) decode-cache shapes + logical axes, as the
     reference declares them (its prefill fills every group's ring at
     ``cache_len``)."""
+    L = g.n_layers
+    if g.kind == "rwkv":
+        r = cfg.rwkv
+        return {
+            "att_x": ParamSpec((L, batch, cfg.d_model), ("layers", "batch", "embed"),
+                               torch.bfloat16, "zeros"),
+            "ffn_x": ParamSpec((L, batch, cfg.d_model), ("layers", "batch", "embed"),
+                               torch.bfloat16, "zeros"),
+            "wkv": ParamSpec((L, batch, r.n_heads, r.head_dim, r.head_dim),
+                             ("layers", "batch", "heads", None, None), torch.float32, "zeros"),
+        }
     if g.kind not in ("dense", "hymba"):
         raise NotImplementedError(f"{g.kind} caches are not ported yet")
-    L = g.n_layers
     w = cache_len if g.window is None else min(g.window, cache_len)
     spec = {
         "k": ParamSpec((L, batch, w, cfg.n_kv_heads, cfg.hd),

@@ -24,6 +24,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.batch_occ import seg_reduce_plain, validate_sequence_plain
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.ref import scatter_max_ref, seg_reduce_ref
+from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
 from repro_torch.kernels.scatter_max import NO_POS, ssn_scatter_max_plain
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
 
@@ -263,6 +264,99 @@ def test_llm_serve_path_on_the_card_matches_the_cpu(cuda_device):
     torch.cuda.synchronize()
     assert cuda.LAUNCHES["flash_attention"] - n0["flash_attention"] == cfg.n_layers
     assert cuda.LAUNCHES["ssm_scan_chunked"] - n0["ssm_scan_chunked"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for g, w in zip(gc, wc):
+        for k in w:
+            torch.testing.assert_close(g[k].cpu(), w[k], atol=1e-4, rtol=1e-4)
+    for i in range(90, 100):
+        want, wc = cpu.decode_step(wc, toks[:, i:i + 1], i)
+        got, gc = gpu.decode_step(gc, toks[:, i:i + 1].to(cuda_device), i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _rwkv6_inputs(b, h, s, kd, vd, dtype, dev, seed, w_lo=0.5):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = (0.5 * torch.randn(b, h, s, kd, generator=g, device=dev)).to(dtype)
+    k = (0.5 * torch.randn(b, h, s, kd, generator=g, device=dev)).to(dtype)
+    v = torch.randn(b, h, s, vd, generator=g, device=dev).to(dtype)
+    w = w_lo + (0.999 - w_lo) * torch.rand(b, h, s, kd, generator=g, device=dev)
+    u = 0.5 * torch.randn(h, kd, generator=g, device=dev)
+    return r, k, v, w, u
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,s,kd,vd",
+    [(1, 2, 64, 16, 16), (2, 4, 100, 16, 16), (1, 1, 96, 64, 64), (2, 8, 1000, 64, 64),
+     (1, 2, 77, 64, 64), (1, 3, 33, 32, 48)],
+)
+def test_rwkv6_kernel_matches_plain(cuda_device, b, h, s, kd, vd, dtype):
+    args = _rwkv6_inputs(b, h, s, kd, vd, dtype, cuda_device, s + kd)
+    n0 = cuda.LAUNCHES["rwkv6_chunked"]
+    y, st = rwkv6_chunked(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["rwkv6_chunked"] == n0 + 1
+    yw, stw = rwkv6_chunked_plain(*args)
+    assert y.dtype == dtype and st.dtype == torch.float32 and st.shape == (b, h, kd, vd)
+    torch.testing.assert_close(y.float(), yw.float(), **_ftol(dtype))
+    torch.testing.assert_close(st, stw, atol=2e-4, rtol=2e-4)
+
+
+def test_rwkv6_kernel_strong_decay_is_finite(cuda_device):
+    r, k, v, _, u = _rwkv6_inputs(2, 2, 200, 64, 64, torch.float32, cuda_device, 1)
+    w = torch.full_like(r, 0.01)
+    y, st = rwkv6_chunked(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yw, stw = rwkv6_chunked_plain(r, k, v, w, u)
+    torch.testing.assert_close(y, yw, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(st, stw, atol=2e-4, rtol=2e-4)
+
+
+def test_rwkv6_kernel_takes_model_layout(cuda_device):
+    """(B, S, H, K) activations as (B, H, S, K) views; y comes back in the
+    same layout."""
+    r, k, v, w, u = _rwkv6_inputs(2, 6, 150, 64, 64, torch.float32, cuda_device, 9)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (r, k, v, w)]
+    y, st = rwkv6_chunked(*views, u)
+    assert y.transpose(1, 2).is_contiguous()
+    yw, stw = rwkv6_chunked_plain(r, k, v, w, u)
+    torch.testing.assert_close(y, yw, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(st, stw, atol=2e-4, rtol=2e-4)
+
+
+def test_rwkv6_kernel_refuses_what_it_does_not_take(cuda_device):
+    r, k, v, w, u = _rwkv6_inputs(1, 2, 40, 16, 16, torch.float32, cuda_device, 2)
+    with pytest.raises(TypeError):
+        rwkv6_chunked(r, k.bfloat16(), v, w, u)
+    with pytest.raises(TypeError):
+        rwkv6_chunked(r, k, v, w.double(), u)
+    big = torch.zeros(1, 2, 40, 80, device=cuda_device)
+    with pytest.raises(ValueError):
+        rwkv6_chunked(big, big, big, big, torch.zeros(2, 80, device=cuda_device))
+
+
+def test_rwkv_serve_path_on_the_card_matches_the_cpu(cuda_device):
+    """Reduced rwkv6 (head dim 16), float32, TF32 off: the card's prefill
+    (the wkv6 kernel, a ragged 90-token prompt) and decode steps equal the
+    CPU's on the same weights and tokens."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("rwkv6-7b"))
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32).init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device=cuda_device, dtype=torch.float32)
+    gpu.lm.load_state_dict(cpu.lm.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 100)).astype(np.int32))
+    n0 = dict(cuda.LAUNCHES)
+    want, wc = cpu.prefill({"tokens": toks[:, :90]}, 128)
+    got, gc = gpu.prefill({"tokens": toks[:, :90].to(cuda_device)}, 128)
+    torch.cuda.synchronize()
+    launched = {name: cuda.LAUNCHES[name] - n0[name] for name in n0}
+    assert launched["rwkv6_chunked"] == cfg.n_layers
+    assert launched["flash_attention"] == 0 and launched["ssm_scan_chunked"] == 0
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     for g, w in zip(gc, wc):
         for k in w:

@@ -54,7 +54,8 @@ def test_fresh_import_leaves_jax_and_reference_out():
         "import repro_torch, repro_torch.core, repro_torch.db, repro_torch.obs\n"
         "import repro_torch.trace, repro_torch.db.ycsb, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.ref, repro_torch.kernels.flash_attention\n"
-        "import repro_torch.kernels.ssm_scan, repro_torch.configs.registry\n"
+        "import repro_torch.kernels.ssm_scan, repro_torch.kernels.rwkv6\n"
+        "import repro_torch.configs.registry, repro_torch.models.rwkv\n"
         "import repro_torch.models.api, repro_torch.models.weights\n"
         "import repro_torch.models.serve_llm, repro_torch.launch.serve\n"
         "from repro_torch.configs.registry import ARCH_NAMES, get_config\n"
@@ -118,11 +119,15 @@ def test_llm_entry_points_without_cuda_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(cfg)                                   # default: cuda
     with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(reduced(get_config("rwkv6-7b")))
+    with pytest.raises(RuntimeError, match="CUDA"):
         build_model(get_config("hymba-1.5b"), device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         from_reference({}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--reduced"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "rwkv6-7b", "--reduced"])
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(build_model(cfg))
     model = build_model(cfg, device="cpu")
@@ -131,6 +136,6 @@ def test_llm_entry_points_without_cuda_raise(no_cuda):
 
 def test_no_environment_switch_in_the_kernel_modules():
     for name in ("ops.py", "batch_occ.py", "scatter_max.py", "flash_attention.py",
-                 "ssm_scan.py", "cuda.py"):
+                 "ssm_scan.py", "rwkv6.py", "cuda.py"):
         src = (PORT / "kernels" / name).read_text()
         assert "environ" not in src and "getenv" not in src, name

@@ -1,7 +1,8 @@
 """The port's LLM serve path against the reference's, on the CPU.
 
 Reduced ``hymba-1.5b`` (hybrid: sliding-window and full attention layers,
-the Mamba branch) and reduced ``tinyllama-1.1b`` (dense): the reference's
+the Mamba branch), reduced ``tinyllama-1.1b`` (dense) and reduced
+``rwkv6-7b`` (attention-free, the wkv6 recurrence): the reference's
 ``Model.init`` draws the weights, ``repro_torch.models.weights.
 from_reference`` carries them over, and both packages run the same
 numpy-seeded tokens: prefill logits and caches (per group, stacked over
@@ -80,6 +81,7 @@ def _assert_caches_close(got, want, tol):
 
 CASES = [("hymba-1.5b", dt, impl) for dt in ("float32", "bfloat16") for impl in ("scan", "chunked")]
 CASES += [("tinyllama-1.1b", dt, "scan") for dt in ("float32", "bfloat16")]
+CASES += [("rwkv6-7b", dt, impl) for dt in ("float32", "bfloat16") for impl in ("scan", "chunked")]
 
 
 def _reference_mode(dtype):
@@ -120,7 +122,8 @@ def _prefill_and_decode(arch, dtype, impl):
 
 @pytest.mark.parametrize("arch,dtype", [("hymba-1.5b", "float32"), ("hymba-1.5b", "bfloat16"),
                                         ("tinyllama-1.1b", "float32"),
-                                        ("tinyllama-1.1b", "bfloat16")])
+                                        ("tinyllama-1.1b", "bfloat16"),
+                                        ("rwkv6-7b", "float32"), ("rwkv6-7b", "bfloat16")])
 def test_generate_tokens_match_reference(arch, dtype):
     jmodel, params, model = _pair(arch, dtype, seed=3, mixer_impl="chunked")
     toks = np.random.default_rng(11).integers(0, 256, (3, PROMPT)).astype(np.int32)
@@ -189,7 +192,7 @@ def test_configs_and_groups_are_the_references(arch):
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "tinyllama-1.1b", "qwen2-1.5b", "stablelm-12b",
-                                  "deepseek-7b"])
+                                  "deepseek-7b", "rwkv6-7b"])
 def test_param_and_cache_specs_are_the_references(arch):
     from repro.models.lm import cache_specs as jcache_specs
     from repro.models.lm import param_specs as jparam_specs
@@ -206,11 +209,41 @@ def test_param_and_cache_specs_are_the_references(arch):
             assert str(g.dtype).split(".")[-1] == np.dtype(w.dtype).name, k
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "rwkv6-7b", "whisper-medium",
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "whisper-medium",
                                   "llava-next-mistral-7b", "grok-1-314b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError):
         build_model(reduced(get_config(arch)), device="cpu")
+
+
+def test_reduced_rwkv6_ragged_prompt_matches_reference():
+    """A prompt of 61 tokens: the kernel's last chunk is ragged (the port
+    pads it) and the reference's chunked form, which needs a multiple of its
+    chunk, falls back to its scan.  Prefill logits and state, then decode."""
+    jmodel, params, model = _pair("rwkv6-7b", "float32", seed=4, mixer_impl="chunked")
+    toks = np.random.default_rng(9).integers(0, 256, (2, 66)).astype(np.int32)
+    jl, jc = jmodel.prefill(params, {"tokens": jnp.asarray(toks[:, :61])}, cache_len=CACHE_LEN)
+    tl, tc = model.prefill({"tokens": torch.from_numpy(toks[:, :61])}, CACHE_LEN)
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=1e-4)
+    _assert_caches_close(tc, jc, dict(atol=1e-4, rtol=1e-4))
+    jl, tl = _continuation(jmodel, params, model, toks, prompt=61, cache_len=CACHE_LEN)
+    np.testing.assert_allclose(tl, jl, atol=1e-4, rtol=1e-4)
+
+
+def test_from_reference_carries_rwkv_params():
+    """Every rwkv leaf of the reference's tree (``time.*`` and
+    ``channel.*``, stacked over the group's layers) lands in its layer."""
+    jcfg = jreduced(jget_config("rwkv6-7b"))
+    params = jax.tree.map(np.asarray, jbuild_model(jcfg).init(jax.random.PRNGKey(6)))
+    model = from_reference(params, reduced(get_config("rwkv6-7b")), device="cpu")
+    group = dict(iter_leaves(params["groups"][0]))
+    assert any(n.startswith("time.") for n in group) and any(n.startswith("channel.") for n in group)
+    for name, arr in group.items():
+        for i, blk in enumerate(model.lm.blocks):
+            p = blk.get_parameter(name)
+            want = torch.from_numpy(np.array(arr[i], np.float32))
+            assert p.dtype == (torch.bfloat16 if arr.dtype.name == "bfloat16" else torch.float32)
+            assert torch.equal(p.float(), want), (name, i)
 
 
 def test_reduced_qwen2_with_qkv_bias_matches_reference():
@@ -236,12 +269,13 @@ def test_seeded_init_draws_the_reference_distributions():
     assert all(torch.equal(a, b) for a, b in zip(lm.parameters(), again.lm.parameters()))
 
 
-def test_serve_cli_runs_reduced_on_the_cpu(capsys):
-    assert serve_cli.main(["--arch", "hymba-1.5b", "--device", "cpu", "--reduced",
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
+def test_serve_cli_runs_reduced_on_the_cpu(capsys, arch):
+    assert serve_cli.main(["--arch", arch, "--device", "cpu", "--reduced",
                            "--batch", "2", "--prompt-len", "40", "--max-new", "4",
                            "--cache-len", "64"]) == 0
     out = capsys.readouterr().out
-    assert "arch=hymba-1.5b" in out and "device=cpu" in out and "tok/s" in out
+    assert f"arch={arch}" in out and "device=cpu" in out and "tok/s" in out
 
 
 def test_cast_to_float32_keeps_every_value():

@@ -19,10 +19,12 @@ import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention_fwd as jflash
-from repro.kernels.ref import attention_ref, ssm_scan_ref
+from repro.kernels.ref import attention_ref, rwkv6_ref, ssm_scan_ref
+from repro.kernels.rwkv6 import rwkv6_chunked as jrwkv6
 from repro.kernels.ssm_scan import ssm_scan_chunked as jssm
 from repro_torch.kernels import cuda
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+from repro_torch.kernels.rwkv6 import CHUNK, rwkv6_chunked, rwkv6_chunked_plain
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
 
 TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -166,3 +168,80 @@ def test_ssm_scan_wrapper_runs_plain_on_cpu_tensors():
         assert torch.equal(g, w)
     with pytest.raises(ValueError):
         ssm_scan_chunked(args[0], args[1][:, :, :5], *args[2:])
+
+
+# --- chunked wkv6 -------------------------------------------------------------------
+
+def _rwkv6_inputs(b, h, s, kd, vd, dtype, seed, w_range=(0.5, 0.999)):
+    rng = np.random.default_rng(seed)
+    r = _pair(rng.normal(0, 0.5, (b, h, s, kd)), dtype)
+    k = _pair(rng.normal(0, 0.5, (b, h, s, kd)), dtype)
+    v = _pair(rng.normal(0, 1, (b, h, s, vd)), dtype)
+    w = _pair(rng.uniform(*w_range, (b, h, s, kd)), jnp.float32)
+    u = _pair(rng.normal(0, 0.5, (h, kd)), jnp.float32)
+    return [a[0] for a in (r, k, v, w, u)], [a[1] for a in (r, k, v, w, u)]
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,s,kd,vd", [(1, 2, 64, 16, 16), (2, 2, 128, 32, 32), (1, 1, 96, 64, 64)],
+)
+def test_rwkv6_plain_matches_pallas(b, h, s, kd, vd, dtype):
+    """The reference's sweep, all at its chunk of 32, which is the port's."""
+    jargs, targs = _rwkv6_inputs(b, h, s, kd, vd, dtype, s + kd)
+    y, st = rwkv6_chunked_plain(*targs)
+    assert y.dtype == TORCH[dtype] and y.shape == (b, h, s, vd)
+    assert st.dtype == torch.float32 and st.shape == (b, h, kd, vd)
+    for want_y, want_st in (jrwkv6(*jargs, chunk=CHUNK, interpret=True), rwkv6_ref(*jargs)):
+        np.testing.assert_allclose(_np(y), np.asarray(want_y.astype(jnp.float32)), **_tol(dtype))
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_st), **_tol(dtype))
+
+
+def test_rwkv6_plain_strong_decay_is_finite():
+    """w = 0.01 (log decay -4.6 a step, -147 over a chunk): the
+    later-minus-earlier exponents never overflow."""
+    jargs, targs = _rwkv6_inputs(1, 1, 64, 16, 16, jnp.float32, 3, w_range=(0.01, 0.01))
+    jargs[4], targs[4] = jnp.zeros((1, 16), jnp.float32), torch.zeros(1, 16)
+    y, st = rwkv6_chunked_plain(*targs)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yp, stp = jrwkv6(*jargs, chunk=CHUNK, interpret=True)
+    yr, str_ = rwkv6_ref(*jargs)
+    for want_y, want_st in ((yp, stp), (yr, str_)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=1e-4, rtol=1e-3)
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_st), atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("s", [1, 31, 33, 77, 100])
+def test_rwkv6_plain_ragged_padding_is_exact(s):
+    """A ragged S is padded with r = k = v = 0 and w = 1: the state carries
+    unchanged, so the result is the naive recurrence's over S steps, and
+    bit-equal to padding by hand with any r and v, zero k and unit w."""
+    b, h, kd, vd = 2, 3, 16, 16
+    jargs, (r, k, v, w, u) = _rwkv6_inputs(b, h, s, kd, vd, jnp.float32, s)
+    y, st = rwkv6_chunked_plain(r, k, v, w, u)
+    yr, str_ = rwkv6_ref(*jargs)
+    np.testing.assert_allclose(y.numpy(), np.asarray(yr), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(st.numpy(), np.asarray(str_), atol=2e-4, rtol=2e-4)
+
+    pad = (-s) % CHUNK
+    rng = np.random.default_rng(1)
+    junk = lambda *shape: torch.from_numpy(rng.normal(0, 1, shape).astype(np.float32))
+    rp = torch.cat([r, junk(b, h, pad, kd)], dim=2)      # y past S is dropped
+    kp = torch.cat([k, torch.zeros(b, h, pad, kd)], dim=2)
+    vp = torch.cat([v, junk(b, h, pad, vd)], dim=2)      # k = 0: k^T v = 0
+    wp = torch.cat([w, torch.ones(b, h, pad, kd)], dim=2)
+    y2, st2 = rwkv6_chunked_plain(rp, kp, vp, wp, u)
+    assert torch.equal(y2[:, :, :s], y) and torch.equal(st2, st)
+
+
+def test_rwkv6_wrapper_runs_plain_on_cpu_tensors():
+    _, args = _rwkv6_inputs(1, 2, 70, 16, 16, jnp.float32, 5)
+    before = dict(cuda.LAUNCHES)
+    got = rwkv6_chunked(*args)
+    assert cuda.LAUNCHES == before
+    for g, w in zip(got, rwkv6_chunked_plain(*args)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        rwkv6_chunked(args[0], args[1][:, :, :5], *args[2:])
+    with pytest.raises(ValueError):
+        rwkv6_chunked(*args[:4], args[4][:1])             # u is not (H, K)
