@@ -16,7 +16,8 @@ together), and then:
    the same function, where there is one: the three OLTP kernels exactly;
    flash attention (hymba's prefill shape, B=8, S=T=2048, 25 query and 5 KV
    heads of 64, full and window 1024, bfloat16 and float32, plus a ragged
-   S=1000), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
+   S=1000 and a bfloat16 full-causal D=128 case with 12 query and 2 KV
+   heads), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
    and bfloat16, plus S=1000) and the chunked wkv6 recurrence (rwkv6-7b's
    prefill shape, B=8, H=64, S=2048, K=V=64, float32 and bfloat16, plus
    S=1000) within stated tolerances;
@@ -122,13 +123,16 @@ SERVE_ARCHS = (("hymba-1.5b", ("flash_attention", "ssm_scan_chunked")),
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, CACHE_LEN = 8, 2048, 64, 4096
 RAGGED_BATCH, RAGGED_PROMPT = 2, 1000
 ORACLE_STEPS = 16
-# kernel vs plain on the card, as (atol, rtol): both compute in float32 from
-# the same inputs in another order.  float32: the reference's kernel-test
-# tolerance (tests/test_kernels.py::_tol); measured on the H100 up to 1.6e-6.
-# bfloat16: the two float32 results round at most one bf16 ulp apart, and
-# one ulp is at most 2^-7 |w|; 1e-3 absolute covers the float32 differences
-# near zero.  Measured on the H100: 0.0039 (attention, |w| < 1) and 0.031
-# (scan and wkv6, |w| in [4, 8)), each one ulp.
+# kernel vs plain on the card, as (atol, rtol): both compute the scores, the
+# softmax and the sums in float32 from the same inputs in another order.
+# float32: the reference's kernel-test tolerance (tests/test_kernels.py::_tol);
+# measured on the H100 up to 1.6e-6. bfloat16: the two float32 results round
+# at most one bf16 ulp apart, and one ulp is at most 2^-7 |w|; 1e-3 absolute
+# covers the float32 differences near zero. The bf16 attention kernel feeds P
+# to the tensor cores as a hi/lo pair of bf16 (P_hi = bf16(P), P_lo =
+# bf16(P - P_hi)), which keeps P to about 2^-16; a single bf16 P would break
+# this limit in the early, peaky rows. Measured on the H100: 0.0039
+# (attention, |w| < 1) and 0.031 (scan and wkv6, |w| in [4, 8)), each one ulp.
 LLM_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (2e-4, 2e-4)}
 # the full-width float32 continuation oracle.  Measured on the H100:
 # 4.8e-5 with logits up to 4.1, where the two sides differ only in float32
@@ -372,8 +376,7 @@ def _attn_pairs(s: int, t: int, window) -> int:
     return int(n.sum())
 
 
-def _flash_case(gen, b, s, window, dtype, dev):
-    hq, hkv, d = 25, 5, 64
+def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64):
     # the model's (B, S, H, D) activations, handed over as (B, H, S, D) views
     q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
     k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
@@ -481,6 +484,8 @@ def check_llm_kernels(seed: int):
     cases += [_flash_case(gen, b, s, w, dt, dev)
               for dt, w in ((torch.bfloat16, None), (torch.float32, 1024), (torch.float32, None))]
     cases.append(_flash_case(gen, RAGGED_BATCH, RAGGED_PROMPT, 1024, torch.bfloat16, dev))
+    # qwen2-1.5b's heads (12 query / 2 KV of 128): the kernel's D = 128 path
+    cases.append(_flash_case(gen, b, s, None, torch.bfloat16, dev, hq=12, hkv=2, d=128))
     cases.append(_ssm_case(gen, b, s, torch.float32, dev))
     cases.append(_ssm_case(gen, b, s, torch.bfloat16, dev))
     cases.append(_ssm_case(gen, RAGGED_BATCH, RAGGED_PROMPT, torch.float32, dev))

@@ -9,36 +9,63 @@
 // are -1e30, as in the TPU kernel), an online max/sum in fp32, and the output
 // acc / max(l, 1e-30) cast to q's type. KV head = q_head * Hkv / Hq. The main
 // path reaches it through repro_torch.models.attention.attend (every prefill
-// layer of the LLM).
+// layer of the LLM). One C entry point, repro_flash_attention, picks one of
+// two kernels by dtype. Both take any strides for (batch, head, position)
+// with a contiguous head dim, so the model's (B, S, H, D) tensors go in as
+// (B, H, S, D) views, and both skip the KV tiles past a query tile's causal
+// frontier or wholly before its window (the TPU kernel's pl.when skip).
 //
-// Design: one block per (batch, q head, tile of 64 query rows). Each query row
-// is owned by G = D/32 neighbouring threads; a thread holds 32 of the row's D
-// dims of q (pre-scaled) and of the fp32 accumulator in registers, in float4
-// groups interleaved across the G threads, so a warp's shared-memory reads of
-// one key row are G neighbouring float4s broadcast to every row. K and V tiles
-// are staged in shared memory as fp32; a row's dot product is reduced across
-// its G threads with warp shuffles. The online softmax takes 16 keys at a
-// time. KV tiles past the tile's causal frontier or wholly before its window
-// are never loaded (the TPU kernel's pl.when skip). S and T need not be
-// multiples of the tiles: query rows past S are computed but not stored, and
-// keys past T are masked like any other.
+// Bound: operations, 4*D flops per unmasked (query, key) pair, against bytes
+// that read q, k, v and write o once.
 //
-// Layout: any strides for (batch, head, position); the head dim must be
-// contiguous. The model passes its (B, S, H, D) tensors as (B, H, S, D) views,
-// so nothing is transposed in memory.
+// bfloat16 (flash_fwd_wgmma_kernel): on the tensor cores, in the shape of
+// FlashAttention-3. A work item is 128 query rows of one (batch, q head); the
+// grid is persistent (one block per SM walks the items, the longest causal
+// tiles first). A block has three warpgroups. The producer (registers given
+// up with setmaxnreg) issues every load by TMA, 128-B swizzled: Q into two
+// buffers, so the next item's Q arrives under this item's tiles, and K/V
+// tiles of 128 keys into a two-stage ring with full and empty mbarriers, K
+// released as soon as S is computed and V after P V. Two consumer warpgroups
+// own 64 rows each. Per tile, one wgmma group computes S = Q K^T (both
+// operands in shared memory) and another O += P V of the previous tile (P
+// from registers, V read MN-major); the softmax of S runs while P V is still
+// on the tensor cores, and named barriers make the two warpgroups take turns
+// issuing, so one's softmax also runs under the other's products. Scale,
+// softcap and mask act on the fp32 accumulator registers; each row lies in
+// one quad of threads (2 shuffles per reduction). P is rounded into a hi/lo
+// pair of bf16, P_hi = bf16(P) and P_lo = bf16(P - P_hi), and both products
+// are summed: one bf16 P breaks the one-ulp output limit in the early, peaky
+// rows, the pair keeps P to about 2^-16; l sums the unrounded P. That is 6*D
+// tensor-core flops per pair against the bound's 4*D. Keys past T arrive as
+// TMA's zero fill and are masked like any other; the output tile is staged
+// in shared memory and stored by TMA, which writes rows < S only. On the H100
+// what limits it is the CUDA-core work per tile (the softmax, the P split and
+// the exp2s on the MUFU pipe), not the tensor cores or the loads. The tensor
+// maps are encoded per call from the strides, through the driver entry point
+// that cudaGetDriverEntryPoint returns (no -lcuda at link time).
 //
-// Bound: operations. 4*D flops per unmasked (query, key) pair against bytes
-// that read q, k, v and write o once. This first version runs on the fp32
-// CUDA cores (no tensor cores), so it sits far above the bf16 bound;
-// wgmma/TMA tiles are later work.
+// float32 (flash_fwd_kernel): on the fp32 CUDA cores, because fp32 inputs
+// come from the full-width fp32 oracle and hold a 2e-4 limit that TF32 or
+// bf16 products would not. One block per (batch, q head, 64 query rows); a
+// row is owned by D/32 neighbouring threads holding interleaved float4 groups
+// of q and the accumulator in registers; K and V tiles are staged in shared
+// memory; dot products are reduced with warp shuffles; the online softmax
+// takes 16 keys at a time. It is bounded by the fp32 FMA rate (67 TFLOP/s).
 
-#include "common.cuh"
-
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kBQ = 64;     // query rows per block
 constexpr int kKSub = 16;   // keys per online-softmax step
 
@@ -55,25 +82,7 @@ struct FlashArgs {
   float scale;
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);   // round to nearest even, as torch's cast
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kBQ * (D / 32))
 flash_fwd_kernel(const FlashArgs a) {
   constexpr int G = D / 32;                 // threads per query row
@@ -92,9 +101,9 @@ flash_fwd_kernel(const FlashArgs a) {
   const long long qpos = q0 + row;
   const bool qvalid = qpos < a.s;
 
-  const T* qp = static_cast<const T*>(a.q) + bi * a.qsb + hi * a.qsh;
-  const T* kp = static_cast<const T*>(a.k) + bi * a.ksb + hk * a.ksh;
-  const T* vp = static_cast<const T*>(a.v) + bi * a.vsb + hk * a.vsh;
+  const float* qp = static_cast<const float*>(a.q) + bi * a.qsb + hi * a.qsh;
+  const float* kp = static_cast<const float*>(a.k) + bi * a.ksb + hk * a.ksh;
+  const float* vp = static_cast<const float*>(a.v) + bi * a.vsb + hk * a.vsh;
 
   // this thread's dims: float4 group (i * G + g) for i in [0, 8)
   float qr[32], acc[32];
@@ -103,7 +112,7 @@ flash_fwd_kernel(const FlashArgs a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int d = (i * G + g) * 4 + c;
-      qr[i * 4 + c] = qvalid ? to_f(qp[qpos * a.qss + d]) * a.scale : 0.f;
+      qr[i * 4 + c] = qvalid ? qp[qpos * a.qss + d] * a.scale : 0.f;
       acc[i * 4 + c] = 0.f;
     }
   }
@@ -123,8 +132,8 @@ flash_fwd_kernel(const FlashArgs a) {
       const long long kpos = kt + j;
       float kx = 0.f, vx = 0.f;
       if (kpos < a.t) {
-        kx = to_f(kp[kpos * a.kss + d]);
-        vx = to_f(vp[kpos * a.vss + d]);
+        kx = kp[kpos * a.kss + d];
+        vx = vp[kpos * a.vss + d];
       }
       ks[j][d] = kx;
       vs[j][d] = vx;
@@ -183,23 +192,688 @@ flash_fwd_kernel(const FlashArgs a) {
   }
 
   if (qvalid) {
-    T* op = static_cast<T*>(a.o) + bi * a.osb + hi * a.osh + qpos * a.oss;
+    float* op = static_cast<float*>(a.o) + bi * a.osb + hi * a.osh + qpos * a.oss;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < V4; ++i) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        op[(i * G + g) * 4 + c] = from_f<T>(acc[i * 4 + c] / den);
+        op[(i * G + g) * 4 + c] = acc[i * 4 + c] / den;
       }
     }
   }
 }
 
-template <typename T, int D>
-void launch(const FlashArgs& a, cudaStream_t st) {
+template <int D>
+void launch_fp32(const FlashArgs& a, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>((a.s + kBQ - 1) / kBQ),
                   static_cast<unsigned>(a.hq), static_cast<unsigned>(a.b));
-  flash_fwd_kernel<T, D><<<grid, kBQ * (D / 32), 0, st>>>(a);
+  flash_fwd_kernel<D><<<grid, kBQ * (D / 32), 0, st>>>(a);
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core kernel (TMA, mbarriers, wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 128;     // query rows per work item: two consumer warpgroups of 64
+constexpr int kKeys = 128;     // keys per K/V tile
+constexpr int kStages = 2;     // K/V ring depth
+constexpr int kQStages = 2;    // Q tiles: the next item's Q loads under this item's tiles
+constexpr int kBox = 64;       // bf16 per 128-B swizzled row: a tile of D = 128 is two boxes wide
+constexpr int kWgThreads = 128;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kMaxSmem = 232448;   // a block's shared memory on sm_90
+
+struct WgmmaArgs {
+  int s, t, b, hq, hkv, n_qt, n_items;
+  int causal;
+  int window;        // <= 0: no window
+  float softcap;     // <= 0: no softcap
+  float scale;       // 1/sqrt(D)
+};
+
+// Each tile is stored as D/64 column boxes of [rows][64] bf16, 128-B rows in
+// TMA's 128-B swizzle, so every box starts on a 1024-B boundary.
+template <int D>
+struct alignas(1024) WgmmaSmem {
+  __nv_bfloat16 q[kQStages][D / kBox][kRows * kBox];
+  __nv_bfloat16 k[kStages][D / kBox][kKeys * kBox];
+  __nv_bfloat16 v[kStages][D / kBox][kKeys * kBox];
+  __nv_bfloat16 o[D / kBox][kRows * kBox];   // the output tile, staged for its TMA store
+  uint64_t q_full[kQStages];
+  uint64_t q_empty[kQStages];
+  uint64_t k_full[kStages];
+  uint64_t v_full[kStages];
+  uint64_t k_empty[kStages];   // K is released after S, V only after P V
+  uint64_t v_empty[kStages];
+};
+static_assert(sizeof(WgmmaSmem<128>) + 1024 <= kMaxSmem, "shared memory of the D = 128 kernel");
+
+// Work item w -> (query tile, q head, batch). Items are ordered by query tile,
+// the longest first in the causal case, so the short ones fill the last wave;
+// within a tile rank the q heads of one KV head are neighbours.
+struct Item {
+  int qt, hi, bi;
+};
+__device__ __forceinline__ Item item_of(int w, const WgmmaArgs& a) {
+  const int per = a.hq * a.b;
+  const int rank = w / per, hb = w % per;
+  return Item{a.causal ? a.n_qt - 1 - rank : rank, hb % a.hq, hb / a.hq};
+}
+
+// The KV tiles of query rows [q0, q0 + kRows): none past the causal frontier
+// or wholly before the window.
+__device__ __forceinline__ void kv_range(int q0, const WgmmaArgs& a, int& k_begin, int& n_tiles) {
+  const int q_last = (q0 + kRows < a.s ? q0 + kRows : a.s) - 1;
+  int k_end = a.t;
+  if (a.causal && q_last + 1 < k_end) k_end = q_last + 1;
+  k_begin = 0;
+  if (a.window > 0 && q0 - a.window + 1 > 0) k_begin = q0 - a.window + 1;
+  k_begin = (k_begin / kKeys) * kKeys;
+  n_tiles = k_end > k_begin ? (k_end - k_begin + kKeys - 1) / kKeys : 0;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Arrive where pred holds, without a branch (a branch between a wgmma and its
+// wait makes ptxas serialize the wgmmas).
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+      :: "r"(smem_addr(bar)), "r"(static_cast<int>(pred)) : "memory");
+}
+
+// Spin until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// One TMA box (64 x rows x 1 x 1) at coordinates (c0, c1, c2, c3) into shared
+// memory; completion is counted in bytes on the barrier.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One TMA box from shared memory to (c0, c1, c2, c3); positions past the
+// tensor's end are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-B swizzle: start address, leading and
+// stride byte offsets, each in 16-B units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from touching registers that an asynchronous wgmma still
+// reads or writes: every use after the wait depends on this barrier.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(r[i][c]) :: "memory");
+  }
+}
+
+// Named barriers 1 and 2 between the two consumer warpgroups (256 threads).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive_if(int id, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p bar.arrive %0, 256;\n}\n"
+      :: "r"(id), "r"(static_cast<int>(pred)) : "memory");
+}
+// A named barrier of one warpgroup (128 threads).
+__device__ __forceinline__ void named_sync_wg(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 16) * B (16 x 128); A and B in shared memory, both
+// K-major (no transpose); scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 64);
+// B in shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 128);
+// B in shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  else wgmma_rs_n128(o, a, db);
+}
+
+template <int D>
+__global__ void __launch_bounds__(3 * kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap to, const WgmmaArgs a) {
+  constexpr int kHalves = D / kBox;
+  constexpr uint32_t kTileBytes = kKeys * D * 2;
+  extern __shared__ unsigned char smem_raw[];
+  WgmmaSmem<D>& sm = *reinterpret_cast<WgmmaSmem<D>*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  const int tid = threadIdx.x;
+  // 0: producer; 1, 2: consumers; read from lane 0 so the compiler knows it
+  // is warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, tid / kWgThreads, 0);
+
+  if (tid == 0) {
+    for (int i = 0; i < kQStages; ++i) {
+      mbar_init(&sm.q_full[i], 1);
+      mbar_init(&sm.q_empty[i], 2);         // one arrival per consumer warpgroup
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&sm.k_full[i], 1);
+      mbar_init(&sm.v_full[i], 1);
+      mbar_init(&sm.k_empty[i], 2);
+      mbar_init(&sm.v_empty[i], 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The grid is persistent: block j takes work items j, j + gridDim.x, ...
+  if (wg == 0) {
+    // producer: one thread issues every TMA load, running ahead of the
+    // consumers by the depth of the Q and K/V rings
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (tid == 0) {
+      int n = 0, kv = 0;
+      for (int w = blockIdx.x; w < a.n_items; w += gridDim.x, ++n) {
+        const Item it = item_of(w, a);
+        const int q0 = it.qt * kRows;
+        const int hk = it.hi * a.hkv / a.hq;
+        int k_begin, n_tiles;
+        kv_range(q0, a, k_begin, n_tiles);
+        const int qs = n % kQStages;
+        if (n >= kQStages) mbar_wait(&sm.q_empty[qs], ((n / kQStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.q_full[qs], kRows * D * 2);
+        for (int h = 0; h < kHalves; ++h)
+          tma_load(sm.q[qs][h], &tq, &sm.q_full[qs], h * kBox, q0, it.hi, it.bi);
+        for (int i = 0; i < n_tiles; ++i, ++kv) {
+          const int st = kv % kStages;
+          const uint32_t ep = ((kv / kStages) & 1) ^ 1;
+          if (kv >= kStages) mbar_wait(&sm.k_empty[st], ep);
+          const int kt = k_begin + i * kKeys;
+          mbar_expect_tx(&sm.k_full[st], kTileBytes);
+          for (int h = 0; h < kHalves; ++h)
+            tma_load(sm.k[st][h], &tk, &sm.k_full[st], h * kBox, kt, hk, it.bi);
+          if (kv >= kStages) mbar_wait(&sm.v_empty[st], ep);
+          mbar_expect_tx(&sm.v_full[st], kTileBytes);
+          for (int h = 0; h < kHalves; ++h)
+            tma_load(sm.v[st][h], &tv, &sm.v_full[st], h * kBox, kt, hk, it.bi);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup c owns rows 64c .. 64c + 63 of each work item
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int c = wg - 1;
+  const int t = tid % kWgThreads;
+  const int lane = t % 32;
+  // this thread's two rows of the item (wgmma accumulator layout) and its
+  // first column in every group of 8
+  const int r0 = 64 * c + 16 * (t / 32) + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const float scale2 = a.scale * kLog2e;
+  const float cap_over_scale = a.softcap / a.scale, scale_over_cap = a.scale / a.softcap;
+
+  int n = 0, kv = 0;
+  for (int w = blockIdx.x; w < a.n_items; w += gridDim.x, ++n) {
+    const Item it = item_of(w, a);
+    const int q0 = it.qt * kRows;
+    const int qa = q0 + 64 * c;                         // the warpgroup's first row
+    int k_begin, n_tiles;
+    kv_range(q0, a, k_begin, n_tiles);
+    const int qs = n % kQStages;
+
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+    uint32_t p_hi[kKeys / 16][4], p_lo[kKeys / 16][4];   // P of the tile whose P V is pending
+    const uint32_t q_base = smem_addr(sm.q[qs][0]) + 64 * c * 128;
+    mbar_wait(&sm.q_full[qs], (n / kQStages) & 1);
+    mbar_arrive_if(&sm.q_empty[qs], n_tiles == 0 && t == 0);
+
+    auto wait_k = [&](int j) {
+      mbar_wait(&sm.k_full[(kv + j) % kStages], ((kv + j) / kStages) & 1);
+    };
+    auto wait_v = [&](int j) {
+      mbar_wait(&sm.v_full[(kv + j) % kStages], ((kv + j) / kStages) & 1);
+    };
+    // S = Q K^T for tile j: D/16 steps of 16 dims, both operands K-major in
+    // shared memory; committed as one wgmma group
+    auto issue_s = [&](float (&sacc)[kKeys / 2], int j) {
+      const int st = (kv + j) % kStages;
+      const uint32_t k_base = smem_addr(sm.k[st][0]);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
+        const uint32_t qoff = (kk / 4) * kRows * 128 + (kk % 4) * 32;
+        wgmma_ss_n128(sacc, smem_desc(q_base + qoff, 16, 1024),
+                      smem_desc(k_base + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P_hi V + P_lo V for tile j: 16 keys per step, V MN-major
+    auto issue_pv = [&](int j) {
+      const int st = (kv + j) % kStages;
+      const uint32_t v_base = smem_addr(sm.v[st][0]);
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_pv<D>(o, p_hi[kk], smem_desc(v_base + kk * 16 * 128, kKeys * 128, 1024));
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_pv<D>(o, p_lo[kk], smem_desc(v_base + kk * 16 * 128, kKeys * 128, 1024));
+      wgmma_commit();
+    };
+    // The online softmax of tile j in the log2 domain: scale, softcap and
+    // mask the scores, update the row max and the row sums, and leave
+    // exp2(s - max) in sacc; returns the factors that rescale O. Each row
+    // lies in one quad of threads.
+    auto softmax = [&](float (&sacc)[kKeys / 2], int j, float& alpha0, float& alpha1) {
+      const int kt = k_begin + j * kKeys;
+      if (a.softcap > 0.f) {
+        // cap * tanh(s * scale / cap), kept in units of s
+#pragma unroll
+        for (int e = 0; e < kKeys / 2; ++e) {
+          sacc[e] = cap_over_scale * tanhf(sacc[e] * scale_over_cap);
+        }
+      }
+      if (kt + kKeys > a.t || (a.causal && qa < kt + kKeys - 1) ||
+          (a.window > 0 && qa + 63 - kt >= a.window)) {
+        // q_pos - k_pos of element 0 and the keys left before T, relative to
+        // this thread's first column; each element adds a constant offset
+        const int dq = q0 + r0 - kt - col0;
+        const int left = a.t - kt - col0;
+#pragma unroll
+        for (int e = 0; e < kKeys / 2; ++e) {
+          const int ko = 8 * (e / 4) + (e % 2);
+          const int diff = dq + ((e % 4) < 2 ? 0 : 8) - ko;
+          bool ok = ko < left;
+          if (a.causal) ok = ok && diff >= 0;
+          if (a.window > 0) ok = ok && diff < a.window;
+          if (!ok) sacc[e] = kNegInf;
+        }
+      }
+      // row maxima as trees of 8 partial maxima (the running max included)
+      float mp[2][8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          mp[h][g] = fmaxf(sacc[4 * g + 2 * h], sacc[4 * g + 2 * h + 1]);
+          mp[h][g] = fmaxf(mp[h][g], fmaxf(sacc[32 + 4 * g + 2 * h], sacc[32 + 4 * g + 2 * h + 1]));
+        }
+#pragma unroll
+        for (int w = 4; w >= 1; w /= 2) {
+#pragma unroll
+          for (int g = 0; g < w; ++g) mp[h][g] = fmaxf(mp[h][g], mp[h][g + w]);
+        }
+      }
+      float mx0 = fmaxf(m0, mp[0][0]), mx1 = fmaxf(m1, mp[1][0]);
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      // exp(scale * (s - max)) as exp2(s * c - max * c), c = scale * log2(e).
+      // A row whose max is still -1e30 has only masked scores so far: c = 0
+      // gives each of them exp(0) = 1, as exp(-1e30 - (-1e30)) in the
+      // reference, and the first real key clears them through alpha.
+      alpha0 = ex2((m0 - mx0) * scale2);
+      alpha1 = ex2((m1 - mx1) * scale2);
+      m0 = mx0;
+      m1 = mx1;
+      const float c0 = mx0 == kNegInf ? 0.f : scale2, c1 = mx1 == kNegInf ? 0.f : scale2;
+      const float b0 = -mx0 * c0, b1 = -mx1 * c1;
+      float sp[2][8];
+#pragma unroll
+      for (int g = 0; g < 16; ++g) {
+        const int e = 4 * g;
+        sacc[e] = ex2(fmaf(sacc[e], c0, b0));
+        sacc[e + 1] = ex2(fmaf(sacc[e + 1], c0, b0));
+        sacc[e + 2] = ex2(fmaf(sacc[e + 2], c1, b1));
+        sacc[e + 3] = ex2(fmaf(sacc[e + 3], c1, b1));
+        if (g < 8) {
+          sp[0][g] = sacc[e] + sacc[e + 1];
+          sp[1][g] = sacc[e + 2] + sacc[e + 3];
+        } else {
+          sp[0][g - 8] += sacc[e] + sacc[e + 1];
+          sp[1][g - 8] += sacc[e + 2] + sacc[e + 3];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int w = 4; w >= 1; w /= 2) {
+#pragma unroll
+          for (int g = 0; g < w; ++g) sp[h][g] += sp[h][g + w];
+        }
+      }
+      l0 = l0 * alpha0 + sp[0][0];      // per-thread partial sums, reduced at the end
+      l1 = l1 * alpha1 + sp[1][0];
+    };
+    // Rescale O, then round P into the hi/lo pair of bf16 A fragments: the
+    // accumulator layout of 16 columns is the A-fragment layout of one
+    // 16-deep step.
+    auto rescale_and_split = [&](const float (&sacc)[kKeys / 2], float alpha0, float alpha1) {
+#pragma unroll
+      for (int e = 0; e < D / 2; e += 4) {
+        o[e] *= alpha0;
+        o[e + 1] *= alpha0;
+        o[e + 2] *= alpha1;
+        o[e + 3] *= alpha1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x0 = sacc[8 * kk + 2 * r], x1 = sacc[8 * kk + 2 * r + 1];
+          const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+          const float2 hf = __bfloat1622float2(h);
+          p_hi[kk][r] = bf16x2_bits(h);
+          p_lo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+        }
+      }
+    };
+
+    // Tile j > 0 is one GEMM phase that issues S(j) and O += P(j-1) V(j-1)
+    // together; the softmax of S(j) then runs while P V is on the tensor
+    // cores. The phases of the two warpgroups alternate (ping-pong on named
+    // barriers 1 and 2, warpgroup 0 first), so one's softmax also runs under
+    // the other's products.
+    if (n_tiles > 0) {
+      named_arrive_if(1, c == 1);
+      float s[kKeys / 2];
+      float alpha0, alpha1;
+      named_sync(1 + c);
+      wait_k(0);
+      wgmma_fence();
+      issue_s(s, 0);
+      named_arrive_if(2 - c, c == 0 || n_tiles > 1);     // the other warpgroup's turn
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive_if(&sm.k_empty[kv % kStages], t == 0);
+      mbar_arrive_if(&sm.q_empty[qs], n_tiles == 1 && t == 0);   // Q read for the last time
+      softmax(s, 0, alpha0, alpha1);
+      rescale_and_split(s, alpha0, alpha1);
+      for (int j = 1; j < n_tiles; ++j) {
+        named_sync(1 + c);
+        wait_k(j);
+        wait_v(j - 1);
+        fence_regs(o);
+        wgmma_fence();
+        issue_s(s, j);
+        issue_pv(j - 1);
+        named_arrive_if(2 - c, c == 0 || j + 1 < n_tiles);
+        wgmma_wait<1>();                                     // S(j) is ready
+        fence_regs(s);
+        mbar_arrive_if(&sm.k_empty[(kv + j) % kStages], t == 0);
+        mbar_arrive_if(&sm.q_empty[qs], j + 1 == n_tiles && t == 0);
+        softmax(s, j, alpha0, alpha1);
+        wgmma_wait<0>();                                     // P V of tile j - 1 is done
+        fence_regs(o);
+        fence_regs(p_hi);
+        fence_regs(p_lo);
+        mbar_arrive_if(&sm.v_empty[(kv + j - 1) % kStages], t == 0);
+        rescale_and_split(s, alpha0, alpha1);
+      }
+      // O += P V for the last tile
+      wait_v(n_tiles - 1);
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv(n_tiles - 1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      mbar_arrive_if(&sm.v_empty[(kv + n_tiles - 1) % kStages], t == 0);
+    }
+    kv += n_tiles;
+
+    // epilogue: o / max(l, 1e-30) in bf16, staged in the 128-B swizzle and
+    // stored by TMA, which writes rows < S only
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    named_sync_wg(3 + c);                 // the previous item's store has read the stage
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      unsigned char* box = reinterpret_cast<unsigned char*>(sm.o[j / 8]);
+      const int sw = ((j % 8) ^ (r0 % 8)) * 16 + 2 * col0;
+      *reinterpret_cast<__nv_bfloat162*>(box + r0 * 128 + sw) =
+          __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      *reinterpret_cast<__nv_bfloat162*>(box + (r0 + 8) * 128 + sw) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to the TMA unit
+    named_sync_wg(3 + c);
+    if (t == 0) {
+      for (int h = 0; h < kHalves; ++h)
+        tma_store(&to, sm.o[h] + 64 * c * kBox, h * kBox, qa, it.hi, it.bi);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over (D, positions, heads, batch) of bf16 with the given element
+// strides, read in boxes of 64 x rows, 128-B swizzled; out-of-range positions
+// read as zeros. A dimension of size 1 never moves, so its stride is replaced
+// by a valid one.
+bool encode_map(CUtensorMap* map, const void* base, long long d, long long n, long long h,
+                long long b, long long sn, long long sh, long long sb, int rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(b)};
+  const long long packed = 2 * d * n * h;
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(n > 1 ? 2 * sn : 2 * d),
+      static_cast<cuuint64_t>(h > 1 ? 2 * sh : 2 * d * n),
+      static_cast<cuuint64_t>(b > 1 ? 2 * sb : packed)};
+  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Once per device: allow the kernel its dynamic shared memory and read the
+// SM count, which sizes the persistent grid.
+template <int D>
+cudaError_t prepare(int smem, int* sms) {
+  static int sms_of[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && sms_of[dev] > 0) {
+    *sms = sms_of[dev];
+    return cudaSuccess;
+  }
+  e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < 64) sms_of[dev] = *sms;
+  return e;
+}
+
+template <int D>
+int launch_bf16(const FlashArgs& f, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, to;
+  if (!encode_map(&tq, f.q, D, f.s, f.hq, f.b, f.qss, f.qsh, f.qsb, kRows) ||
+      !encode_map(&to, f.o, D, f.s, f.hq, f.b, f.oss, f.osh, f.osb, kRows / 2) ||
+      !encode_map(&tk, f.k, D, f.t, f.hkv, f.b, f.kss, f.ksh, f.ksb, kKeys) ||
+      !encode_map(&tv, f.v, D, f.t, f.hkv, f.b, f.vss, f.vsh, f.vsb, kKeys)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_qt = (f.s + kRows - 1) / kRows;
+  const long long n_items = n_qt * f.hq * f.b;
+  if (f.s > (1LL << 30) || f.t > (1LL << 30) || n_items > (1LL << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WgmmaArgs a;
+  a.s = static_cast<int>(f.s); a.t = static_cast<int>(f.t); a.b = static_cast<int>(f.b);
+  a.hq = static_cast<int>(f.hq); a.hkv = static_cast<int>(f.hkv);
+  a.n_qt = static_cast<int>(n_qt); a.n_items = static_cast<int>(n_items);
+  a.causal = f.causal; a.window = f.window; a.softcap = f.softcap; a.scale = f.scale;
+  const int smem = static_cast<int>(sizeof(WgmmaSmem<D>)) + 1024;
+  int sms = 1;
+  const cudaError_t e = prepare<D>(smem, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int grid = static_cast<int>(n_items < sms ? n_items : sms);
+  flash_fwd_wgmma_kernel<D><<<grid, 3 * kWgThreads, smem, st>>>(tq, tk, tv, to, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -207,7 +881,8 @@ void launch(const FlashArgs& a, cudaStream_t st) {
 // meta: b, hq, hkv, s, t, then the (batch, head, position) strides in
 // elements of q, k, v and o. dtype: 0 float32, 1 bfloat16. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a head dim other than 64
-// or 128 or an unknown dtype.
+// or 128, an unknown dtype, or bf16 tensors whose TMA maps cannot be encoded
+// (base pointers must be 16-B aligned, strides multiples of 16 B).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, const long long* meta, int dtype,
                                      int head_dim, int causal, int window,
@@ -222,10 +897,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   a.causal = causal; a.window = window; a.softcap = softcap; a.scale = scale;
   if (a.b <= 0 || a.hq <= 0 || a.s <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) launch<float, 64>(a, st);
-  else if (dtype == 0 && head_dim == 128) launch<float, 128>(a, st);
-  else if (dtype == 1 && head_dim == 64) launch<__nv_bfloat16, 64>(a, st);
-  else if (dtype == 1 && head_dim == 128) launch<__nv_bfloat16, 128>(a, st);
+  if (dtype == 0 && head_dim == 64) launch_fp32<64>(a, st);
+  else if (dtype == 0 && head_dim == 128) launch_fp32<128>(a, st);
+  else if (dtype == 1 && head_dim == 64) return launch_bf16<64>(a, st);
+  else if (dtype == 1 && head_dim == 128) return launch_bf16<128>(a, st);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
+

@@ -8,15 +8,18 @@ softmax and the accumulation are float32 whatever the input type; the
 output has q's type.
 
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/flash_attention.cu``: D of 64 or 128, float32 or bfloat16, any S
-and T); on a CPU tensor it runs :func:`flash_attention_plain`, the
-reference's ``attention_ref`` computation in PyTorch ops.  The choice
-follows the tensors' device and nothing else.
+(``csrc/flash_attention.cu``: D of 64 or 128, any S and T; bfloat16 on the
+tensor cores with TMA loads, float32 on the CUDA cores); on a CPU tensor
+it runs :func:`flash_attention_plain`, the reference's ``attention_ref``
+computation in PyTorch ops.  The choice follows the tensors' device and
+nothing else.
 
 Layout: the wrapper takes any strides whose last (head) dim is contiguous
 and passes them to the kernel, so the model hands over ``(B, S, H, D)``
 activations as ``(B, H, S, D)`` views without a copy; the output is
-allocated in q's layout.
+allocated in q's layout.  bfloat16 tensors must also meet the TMA rule of
+:func:`check_tma_layout`; the wrapper raises on one that does not, and
+never copies it.
 """
 
 from __future__ import annotations
@@ -42,6 +45,20 @@ def _mask(s: int, t: int, causal: bool, window: Optional[int], device) -> torch.
     if window is not None:
         mask &= q_pos - k_pos < window
     return mask
+
+
+def check_tma_layout(**tensors: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless every ``(B, H, S, D)`` tensor can be read
+    by TMA: its base pointer 16-B aligned and its batch, head and position
+    strides multiples of 16 B (a dimension of size 1 never moves, so its
+    stride is free)."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name}'s base pointer is not 16-B aligned")
+        for dim, what in enumerate(("batch", "head", "position")):
+            if x.shape[dim] > 1 and (x.stride(dim) * x.element_size()) % 16:
+                raise ValueError(f"flash_attention: {name}'s {what} stride of "
+                                 f"{x.stride(dim)} elements is not a multiple of 16 B")
 
 
 def flash_attention_plain(
@@ -109,6 +126,8 @@ def flash_attention_fwd(
     out = torch.empty_like(q)
     if out.stride(3) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    if q.dtype == torch.bfloat16:
+        check_tma_layout(q=q, k=k, v=v)
     t = k.shape[2]
     meta = (ctypes.c_longlong * 17)(
         b, hq, hkv, s, t,

@@ -203,6 +203,67 @@ def test_flash_attention_kernel_takes_model_layout(cuda_device):
     torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
 
+# The bf16 kernel (tensor cores, TMA loads) at the serve path's shapes and
+# at its edges, with the model's (B, S, H, D) activations passed as
+# (B, H, S, D) views: hymba's full prefill, qwen2-1.5b's and grok's D = 128
+# heads, keys past the queries, ragged S and T with a window that cuts a
+# tile, and peaky early rows that a single bf16 rounding of P would fail.
+BF16_CASES = [
+    # (b, hq, hkv, s, t, d, causal, window, softcap, q scale)
+    (8, 25, 5, 2048, 2048, 64, True, 1024, None, 1.0),    # hymba prefill, windowed layers
+    (8, 25, 5, 2048, 2048, 64, True, None, None, 1.0),    # hymba prefill, full layers
+    (2, 12, 2, 2048, 2048, 128, True, None, None, 1.0),   # qwen2-1.5b heads
+    (1, 48, 8, 512, 512, 128, True, None, 30.0, 1.0),     # grok heads and softcap
+    (2, 4, 2, 300, 700, 64, False, None, None, 1.0),      # bidirectional, T > S
+    (2, 4, 2, 300, 700, 128, False, None, None, 1.0),
+    (1, 2, 1, 1, 1, 64, True, 37, None, 1.0),             # ragged S and T
+    (1, 5, 1, 63, 63, 64, True, 37, None, 1.0),
+    (2, 4, 2, 65, 65, 128, True, 37, None, 1.0),
+    (2, 5, 1, 129, 129, 64, True, 37, None, 1.0),
+    (1, 4, 2, 65, 129, 64, True, 100, None, 1.0),         # S < T, causal
+    (2, 5, 1, 512, 512, 64, True, None, None, 8.0),       # peaky softmax
+    (1, 4, 1, 512, 512, 128, True, 200, None, 8.0),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,t,d,causal,window,softcap,qscale", BF16_CASES)
+def test_flash_attention_bf16_kernel_cases(cuda_device, b, hq, hkv, s, t, d, causal, window,
+                                           softcap, qscale):
+    g = torch.Generator(device=cuda_device).manual_seed(s * 31 + t + d)
+    q = (qscale * torch.randn(b, s, hq, d, generator=g, device=cuda_device)).bfloat16()
+    k = torch.randn(b, t, hkv, d, generator=g, device=cuda_device).bfloat16()
+    v = torch.randn(b, t, hkv, d, generator=g, device=cuda_device).bfloat16()
+    qv, kv, vv = (x.transpose(1, 2) for x in (q, k, v))
+    n0 = cuda.LAUNCHES["flash_attention"]
+    got = flash_attention_fwd(qv, kv, vv, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_plain(qv, kv, vv, causal=causal, window=window, softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), **_ftol(torch.bfloat16))
+
+
+def test_flash_attention_bf16_kernel_refuses_unaligned_strides(cuda_device):
+    """A bf16 view whose position stride (68 elements, 136 B) is not a
+    multiple of 16 B cannot be read by TMA: the wrapper raises, launches
+    nothing and copies nothing."""
+    base = torch.randn(1, 2, 40, 68, device=cuda_device).bfloat16()
+    q = base[..., :64]
+    k = torch.randn(1, 2, 40, 64, device=cuda_device).bfloat16()
+    n0 = cuda.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="position stride"):
+        flash_attention_fwd(q, k, k)
+    with pytest.raises(ValueError, match="position stride"):
+        flash_attention_fwd(k, q, q)
+    assert cuda.LAUNCHES["flash_attention"] == n0
+    # the same view of float32 values (272 B) is taken: the CUDA-core kernel
+    # reads any strides
+    q32 = base.float()[..., :64]
+    got = flash_attention_fwd(q32, k.float(), k.float())
+    want = flash_attention_plain(q32, k.float(), k.float())
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
 def _ssm_inputs(b, h, s, p, n, dtype, dev, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(b, h, s, p, generator=g, device=dev).to(dtype)

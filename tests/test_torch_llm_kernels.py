@@ -23,7 +23,11 @@ from repro.kernels.ref import attention_ref, rwkv6_ref, ssm_scan_ref
 from repro.kernels.rwkv6 import rwkv6_chunked as jrwkv6
 from repro.kernels.ssm_scan import ssm_scan_chunked as jssm
 from repro_torch.kernels import cuda
-from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
+from repro_torch.kernels.flash_attention import (
+    check_tma_layout,
+    flash_attention_fwd,
+    flash_attention_plain,
+)
 from repro_torch.kernels.rwkv6 import CHUNK, rwkv6_chunked, rwkv6_chunked_plain
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
 
@@ -104,6 +108,44 @@ def test_flash_attention_wrapper_runs_plain_on_cpu_tensors():
     assert torch.equal(got, flash_attention_plain(q, k[:, :2], v[:, :2], window=8))
     with pytest.raises(ValueError):
         flash_attention_fwd(q, k[:, :3], v[:, :3])       # 4 heads over 3
+
+
+def _strided(shape, strides, offset=0, dtype=torch.bfloat16):
+    """A (B, H, S, D) view with the given element strides into a fresh buffer."""
+    span = offset + 1 + sum((n - 1) * st for n, st in zip(shape, strides))
+    return torch.zeros(span, dtype=dtype).as_strided(shape, strides, offset)
+
+
+TMA_LAYOUTS = [
+    # (tensor, meets the rule)
+    pytest.param(lambda: torch.zeros(2, 4, 33, 64, dtype=torch.bfloat16), True, id="contiguous"),
+    pytest.param(lambda: torch.zeros(2, 33, 25, 64, dtype=torch.bfloat16).transpose(1, 2), True,
+                 id="model (B, S, H, D) view, hymba heads"),
+    pytest.param(lambda: torch.zeros(1, 12, 7, 128, dtype=torch.bfloat16), True, id="D=128, 12 heads"),
+    pytest.param(lambda: _strided((1, 1, 5, 64), (3, 5, 64, 1)), True,
+                 id="size-1 batch and head: their strides are free"),
+    pytest.param(lambda: _strided((1, 2, 9, 64), (2 * 9 * 68, 9 * 68, 68, 1)), False,
+                 id="position stride 68 elements"),
+    pytest.param(lambda: _strided((1, 3, 8, 64), (3 * 516, 516, 64, 1)), False,
+                 id="head stride 516 elements"),
+    pytest.param(lambda: _strided((2, 2, 64, 64), (8196, 4096, 64, 1)), False,
+                 id="batch stride 8196 elements"),
+    pytest.param(lambda: _strided((1, 2, 8, 64), (1024, 512, 64, 1), offset=1), False,
+                 id="base pointer 2 B past alignment"),
+]
+
+
+@pytest.mark.parametrize("make,ok", TMA_LAYOUTS)
+def test_tma_layout_rule(make, ok):
+    """The rule the CUDA branch applies to bf16 q, k and v before it builds
+    their TMA maps: 16-B aligned base pointers, and batch, head and position
+    strides that are multiples of 16 B."""
+    x = make()
+    if ok:
+        check_tma_layout(q=x)
+    else:
+        with pytest.raises(ValueError):
+            check_tma_layout(q=x)
 
 
 # --- chunked SSM scan -------------------------------------------------------------
