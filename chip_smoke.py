@@ -13,7 +13,11 @@ together), and then:
 2. holds each kernel against its plain PyTorch version on the card, on
    seeded random inputs at its main path's shapes, and times both (CUDA
    events, median after warm-up) beside the one PyTorch call that computes
-   the same function, where there is one: the three OLTP kernels exactly;
+   the same function, where there is one: the three OLTP kernels exactly,
+   each with its device operations and host microseconds per call
+   (``ssn_scatter_max`` also in recovery's no-image scan form and at a
+   smaller and a larger S on the same scratch, which must come back all
+   zero; ``seg_reduce`` min and max also at 2^19 slots);
    flash attention (hymba's prefill shape, B=8, S=T=2048, 25 query and 5 KV
    heads of 64, full and window 1024, bfloat16 and float32, plus a ragged
    S=1000 and a bfloat16 full-causal D=128 case with 12 query and 2 KV
@@ -77,6 +81,7 @@ from repro_torch.core.recovery import (
 from repro_torch.db import ArrayTable, BatchOCC
 from repro_torch.db import ycsb
 from repro_torch.kernels import cuda as kcuda
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.batch_occ import (
     seg_reduce,
     seg_reduce_plain,
@@ -85,6 +90,7 @@ from repro_torch.kernels.batch_occ import (
 )
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
+from repro_torch.kernels import scatter_max
 from repro_torch.kernels.scatter_max import NO_POS, ssn_scatter_max, ssn_scatter_max_plain
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
 from repro_torch.configs.registry import get_config
@@ -194,6 +200,29 @@ def _per_call_device_ms(fn, calls: int = 20):
     return sum(ms for ms, _ in rows.values()) / calls if rows else None
 
 
+def _launch_readings(fn, calls: int = 20, host_calls: int = 200):
+    """A wrapper's launch path: ``ms`` (CUDA events around one call, median),
+    ``device_ms`` and ``device_ops_per_call`` (every kernel, copy and fill
+    the card ran per call, CUDA profiler), and ``host_us_per_call`` (host
+    clock over ``host_calls`` calls with no synchronisation between them:
+    the enqueue cost)."""
+    ms = _median_ms(fn)
+    for _ in range(3):    # the profiler may drop a window's events: take it again
+        _, rows = _device_ms(lambda: [fn() for _ in range(calls)])
+        if sum(n for _, n in rows.values()) >= calls:
+            break
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(host_calls):
+        fn()
+    host_us = (time.perf_counter() - t0) / host_calls * 1e6
+    torch.cuda.synchronize()
+    return dict(ms=ms,
+                device_ms=sum(ms for ms, _ in rows.values()) / calls if rows else None,
+                device_ops_per_call=sum(n for _, n in rows.values()) / calls if rows else None,
+                host_us_per_call=host_us)
+
+
 def _max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
@@ -232,11 +261,10 @@ def _validate_inputs(rng, dev):
     return args, nbytes, ops, f"acc (6, {lanes}) int32, n_txn={n_txn}, k={k}, cap={cap}"
 
 
-def _scatter_inputs(rng, dev):
+def _scatter_inputs(rng, dev, s=1 << 19, w=1 << 18):
     """The replay apply against a checkpoint image: 2^19 slots (30% from
     the checkpoint), 2^18 lanes with SSN ties, duplicate keys, pad lanes at
     key -1 and at the overflow slot S."""
-    s, w = 1 << 19, 1 << 18
     img_ssn = np.full(s, -1, np.int32)
     img_pos = np.full(s, NO_POS, np.int32)
     ck = rng.random(s) < 0.3
@@ -261,10 +289,10 @@ def _scatter_inputs(rng, dev):
     return args, nbytes, ops, f"S={s} slots, W={w} lanes"
 
 
-def _seg_inputs(rng, dev):
+def _seg_inputs(rng, dev, n_slots=1 << 14):
     """The declined round's first-writer / base-SSN reduce: 2^16 items over
     2^14 slots, 5% pad items at key -1."""
-    w, n_slots = 1 << 16, 1 << 14
+    w = 1 << 16
     key = rng.integers(0, n_slots, w).astype(np.int32)
     key[rng.random(w) < 0.05] = -1
     val = rng.integers(0, 2**31 - 1, w).astype(np.int32)
@@ -286,8 +314,7 @@ def check_kernels(seed: int):
     assert bool(got[0].any()) and not bool(got[0].all()), "degenerate survive mask"
     results.append(dict(
         name="validate_sequence", shape=shape, max_abs_err=_max_abs_err(got, want),
-        ms=_median_ms(lambda: validate_sequence(*args)),
-        device_ms=_per_call_device_ms(lambda: validate_sequence(*args)),
+        **_launch_readings(lambda: validate_sequence(*args)),
         plain_ms=_median_ms(lambda: validate_sequence_plain(*args)),
         bound=_bound(nbytes, ops), library_ms=None,
         source="src/repro_torch/kernels/csrc/validate_sequence.cu",
@@ -309,47 +336,95 @@ def check_kernels(seed: int):
     def _pack(sn, ps):
         return ((sn.long() + 1) << 32) | (2**31 - 1 - ps.long())
 
+    def _unpack(words):
+        return ((words[:s_slots] >> 32) - 1).int(), (2**31 - 1 - (words[:s_slots] & 0xFFFFFFFF)).int()
+
     lib_idx = torch.where((key >= 0) & (key < s_slots), key, s_slots).long()
     lib_lanes = _pack(ssn, pos)
     lib_img = torch.cat([_pack(img_ssn, img_pos), torch.zeros(1, dtype=torch.long, device=dev)])
     lib_out = lib_img.clone().scatter_reduce_(0, lib_idx, lib_lanes, "amax", include_self=True)
-    lib_ssn = ((lib_out[:s_slots] >> 32) - 1).int()
-    lib_pos = (2**31 - 1 - (lib_out[:s_slots] & 0xFFFFFFFF)).int()
-    assert torch.equal(lib_ssn, got[0]) and torch.equal(lib_pos, got[1]), \
+    assert all(torch.equal(l, g) for l, g in zip(_unpack(lib_out), got)), \
         "scatter_reduce_ on packed words != ssn_scatter_max"
+    # the no-image form, as recovery's fused_replay_scan calls it: the same
+    # lanes against an all-empty image that is neither built nor read
+    scan = torch.stack([key, ssn, pos])
+    got_scan = kops.fused_replay_scan(scan, n_slots=s_slots)
+    torch.cuda.synchronize()
+    want_scan = ssn_scatter_max_plain(
+        torch.full_like(img_ssn, -1), torch.full_like(img_pos, int(NO_POS)), key, ssn, pos)
+    assert all(torch.equal(g, w) for g, w in zip(got_scan, want_scan)), "scan form != plain"
+    lib_scan = torch.zeros(s_slots + 1, dtype=torch.long, device=dev)
+    lib_scan_out = lib_scan.clone().scatter_reduce_(0, lib_idx, lib_lanes, "amax", include_self=True)
+    assert all(torch.equal(l, g) for l, g in zip(_unpack(lib_scan_out), got_scan)), \
+        "scatter_reduce_ on packed words != the scan form"
+    # a smaller, then a larger S on the same stream: each equal to the plain
+    # version, so the scratch words came back clean (the larger grows it)
+    for s2, w2 in ((1 << 16, 1 << 15), (1 << 20, 1 << 18)):
+        args2, *_ = _scatter_inputs(rng, dev, s2, w2)
+        got2 = ssn_scatter_max(*args2)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got2, ssn_scatter_max_plain(*args2))), \
+            f"ssn_scatter_max at S={s2} after S={s_slots} != plain"
+    assert not any(bool(b.any()) for b in scatter_max._scratch.values()), "dirty scratch words"
+    lanes_bytes = sum(a.numel() * 4 for a in (key, ssn, pos))
+    scan_form = dict(
+        shape=f"S={s_slots} slots, W={key.shape[0]} lanes, no image",
+        max_abs_err=_max_abs_err(got_scan, want_scan),
+        **_launch_readings(lambda: kops.fused_replay_scan(scan, n_slots=s_slots)),
+        bound=_bound(lanes_bytes + 8 * s_slots, 2 * key.shape[0] + 2 * s_slots),
+        library_ms=_median_ms(lambda: lib_scan.scatter_reduce_(
+            0, lib_idx, lib_lanes, "amax", include_self=True)),
+    )
+    readings = _launch_readings(lambda: ssn_scatter_max(*args))
+    # the redesign's point: one launch per call in both forms
+    assert readings["device_ops_per_call"] == scan_form["device_ops_per_call"] == 1, \
+        (readings, scan_form)
     results.append(dict(
         name="ssn_scatter_max", shape=shape, max_abs_err=_max_abs_err(got, want),
-        ms=_median_ms(lambda: ssn_scatter_max(*args)),
-        device_ms=_per_call_device_ms(lambda: ssn_scatter_max(*args)),
+        **readings,
         plain_ms=_median_ms(lambda: ssn_scatter_max_plain(*args)),
         bound=_bound(nbytes, ops),
         library_ms=_median_ms(lambda: lib_out.scatter_reduce_(
             0, lib_idx, lib_lanes, "amax", include_self=True)),
         source="src/repro_torch/kernels/csrc/scatter_max.cu",
         replaces="src/repro/kernels/scatter_max.py:125",
+        scan_form=scan_form,
     ))
 
-    (key, val, n_slots), nbytes, ops, shape = _seg_inputs(rng, dev)
-    errs = []
-    for op in ("min", "max"):
-        got = seg_reduce(key, val, n_slots, op=op)
-        torch.cuda.synchronize()
-        want = seg_reduce_plain(key, val, n_slots, op)
-        assert torch.equal(got, want), f"seg_reduce {op} != plain"
-        errs.append(_max_abs_err([got], [want]))
-    # the one PyTorch call that computes the same reduce, on prepared inputs
-    idx = torch.where(key >= 0, key, n_slots).long()
-    lib_out = torch.full((n_slots + 1,), -1, dtype=torch.int32, device=dev)
+    def _seg_case(n_slots):
+        """Min and max against the plain version and the library call; the
+        readings of op="max"."""
+        (key, val, n), nbytes, ops, shape = _seg_inputs(rng, dev, n_slots)
+        idx = torch.where((key >= 0) & (key < n), key, n).long()
+        errs = []
+        for op, init in (("min", 2**31 - 1), ("max", -1)):
+            got = seg_reduce(key, val, n, op=op)
+            torch.cuda.synchronize()
+            want = seg_reduce_plain(key, val, n, op)
+            assert torch.equal(got, want), f"seg_reduce {op} != plain at n_slots={n}"
+            lib = torch.full((n + 1,), init, dtype=torch.int32, device=dev).scatter_reduce_(
+                0, idx, val, "a" + op, include_self=True)
+            assert torch.equal(lib[:n], got), f"scatter_reduce_ != seg_reduce {op} at n_slots={n}"
+            errs.append(_max_abs_err([got], [want]))
+        # the one PyTorch call that computes the same reduce, on prepared inputs
+        lib_out = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
+        return dict(
+            shape=shape + ", op=max", max_abs_err=max(errs),
+            **_launch_readings(lambda: seg_reduce(key, val, n, op="max")),
+            plain_ms=_median_ms(lambda: seg_reduce_plain(key, val, n, "max")),
+            bound=_bound(nbytes, ops),
+            library_ms=_median_ms(
+                lambda: lib_out.scatter_reduce_(0, idx, val, "amax", include_self=True)),
+        )
+
+    main = _seg_case(1 << 14)
+    assert main["device_ops_per_call"] == 1, main
     results.append(dict(
-        name="seg_reduce", shape=shape + ", op=max", max_abs_err=max(errs),
-        ms=_median_ms(lambda: seg_reduce(key, val, n_slots, op="max")),
-        device_ms=_per_call_device_ms(lambda: seg_reduce(key, val, n_slots, op="max")),
-        plain_ms=_median_ms(lambda: seg_reduce_plain(key, val, n_slots, "max")),
-        bound=_bound(nbytes, ops),
-        library_ms=_median_ms(
-            lambda: lib_out.scatter_reduce_(0, idx, val, "amax", include_self=True)),
+        name="seg_reduce", **main,
         source="src/repro_torch/kernels/csrc/seg_reduce.cu",
         replaces="src/repro/kernels/batch_occ.py:118",
+        # more slots than items and than any block's shared memory holds
+        large_slots=_seg_case(1 << 19),
     ))
     return results
 
@@ -882,10 +957,15 @@ def main(argv=None) -> int:
 
     kernels = check_kernels(args.seed)
     for k in kernels:
-        print(f"kernel {k['name']} ({k['shape']}): exact; {k['ms']:.4f} ms "
-              f"(device {k['device_ms']} ms), plain "
-              f"{k['plain_ms']:.4f} ms, bound {k['bound'][0]:.4f} ms ({k['bound'][1]})"
-              f", library {k['library_ms']} ms | {smi}")
+        for tag, r in (("", k), (" scan form", k.get("scan_form")),
+                       (" large slots", k.get("large_slots"))):
+            if r is None:
+                continue
+            plain = f", plain {r['plain_ms']:.4f} ms" if "plain_ms" in r else ""
+            print(f"kernel {k['name']}{tag} ({r['shape']}): exact; {r['ms']:.4f} ms "
+                  f"(device {r['device_ms']} ms, {r['device_ops_per_call']} device ops and "
+                  f"{r['host_us_per_call']:.2f} host us per call){plain}, bound "
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), library {r['library_ms']} ms | {smi}")
     llm_cases = check_llm_kernels(args.seed)
     for k in llm_cases:
         print(f"kernel {k['name']} ({k['shape']}): max abs err {k['max_abs_err']:.3g} "
@@ -951,7 +1031,9 @@ def main(argv=None) -> int:
             "library_ms": k["library_ms"], "shape": k["shape"],
             "device_ms": k["device_ms"],
         })
-    print(json.dumps({"kernels": line}))
+        extra = ("device_ops_per_call", "host_us_per_call", "scan_form", "large_slots")
+        line[-1].update({key: k[key] for key in extra if key in k})
+    print(json.dumps({"kernels": line}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

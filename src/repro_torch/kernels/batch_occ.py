@@ -7,7 +7,8 @@ plain PyTorch version beside it:
 * :func:`seg_reduce` — ``out[k] = max``/``min`` of ``val[i]`` over the items
   with ``key[i] == k``: per-transaction base-SSN max (Algorithm 1 lines 1–4,
   batched) and per-tuple first-writer min (intra-batch WW/RW conflicts,
-  first-come-wins).  Kernel: ``csrc/seg_reduce.cu``.
+  first-come-wins).  Kernel: ``csrc/seg_reduce.cu``, one cooperative launch
+  (identity fill, grid-wide barrier, atomics) for every size.
 * :func:`validate_sequence` — one round's first-writer min, the three
   validation masks, the survive reduction and the base-SSN max over one
   stacked ``(6, n_txn*k)`` int32 block.  Kernel:
@@ -35,18 +36,22 @@ from . import cuda
 SEG_MAX_INIT = np.int32(-1)
 NO_WRITER = np.int32(np.iinfo(np.int32).max)
 
+_I32 = torch.int32
+
 
 def _check_i32(name: str, *tensors: torch.Tensor) -> torch.device:
+    """One pass over ``tensors``: each int32, contiguous and on the first's
+    device, which is the CPU or a CUDA device.  Returns that device."""
     dev = tensors[0].device
-    for t in tensors:
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: expected int32, got {t.dtype}")
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
+    for t in tensors:
+        if t.dtype is not _I32 or not t.is_contiguous() or t.device != dev:
+            if t.dtype is not _I32:
+                raise TypeError(f"{name}: expected int32, got {t.dtype}")
+            if t.device != dev:
+                raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+            raise ValueError(f"{name}: tensors must be contiguous")
     return dev
 
 
@@ -83,12 +88,11 @@ def seg_reduce(
         raise ValueError("seg_reduce: key_id and val must be equal-length 1-D")
     if dev.type == "cpu":
         return seg_reduce_plain(key_id, val, n_slots, op)
-    out = torch.empty(n_slots, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = cuda.lib().repro_seg_reduce(
-            key_id.data_ptr(), val.data_ptr(), key_id.numel(), out.data_ptr(),
-            n_slots, int(op == "min"), cuda.stream_of(out),
-        )
+    out = key_id.new_empty(n_slots)
+    err = cuda.lib().repro_seg_reduce(
+        key_id.data_ptr(), val.data_ptr(), key_id.shape[0], out.data_ptr(), n_slots,
+        op == "min", dev.index, cuda.current_stream(dev.index),
+    )
     cuda.check(err, "seg_reduce")
     cuda.LAUNCHES["seg_reduce"] += 1
     return out
@@ -142,14 +146,13 @@ def validate_sequence(
         )
     if dev.type == "cpu":
         return validate_sequence_plain(acc, a_len, n_txn, k, cap)
-    fw = torch.empty(cap, dtype=torch.int32, device=dev)
-    survive = torch.empty(n_txn, dtype=torch.bool, device=dev)
-    bases = torch.empty(n_txn, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = cuda.lib().repro_validate_sequence(
-            acc.data_ptr(), a_len.data_ptr(), n_txn, k, cap, fw.data_ptr(),
-            survive.data_ptr(), bases.data_ptr(), cuda.stream_of(acc),
-        )
+    fw = acc.new_empty(cap)
+    survive = acc.new_empty(n_txn, dtype=torch.bool)
+    bases = acc.new_empty(n_txn)
+    err = cuda.lib().repro_validate_sequence(
+        acc.data_ptr(), a_len.data_ptr(), n_txn, k, cap, fw.data_ptr(),
+        survive.data_ptr(), bases.data_ptr(), dev.index, cuda.current_stream(dev.index),
+    )
     cuda.check(err, "validate_sequence")
     cuda.LAUNCHES["validate_sequence"] += 1
     return survive, bases

@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -886,7 +888,10 @@ int launch_bf16(const FlashArgs& f, cudaStream_t st) {
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, const long long* meta, int dtype,
                                      int head_dim, int causal, int window,
-                                     float softcap, float scale, void* stream) {
+                                     float softcap, float scale, int device,
+                                     void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   FlashArgs a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.b = meta[0]; a.hq = meta[1]; a.hkv = meta[2]; a.s = meta[3]; a.t = meta[4];

@@ -42,6 +42,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kChunk = 32;
@@ -219,7 +221,9 @@ int launch(const WkvArgs& a, cudaStream_t stream) {
 // an unknown dtype.
 extern "C" int repro_rwkv6_chunked(const void* r, const void* k, const void* v, const void* w,
                                    const void* u, void* y, void* state, const long long* meta,
-                                   int dtype, void* stream) {
+                                   int dtype, int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   WkvArgs a;
   a.r = r; a.k = k; a.v = v;
   a.w = static_cast<const float*>(w); a.u = static_cast<const float*>(u);

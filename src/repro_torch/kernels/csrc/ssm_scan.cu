@@ -183,7 +183,9 @@ __global__ void __launch_bounds__(kThreadsSsm) ssm_chunked_kernel(const SsmArgs 
 extern "C" int repro_ssm_scan_chunked(const void* x, const void* dt, const void* decay,
                                       const void* bm, const void* cm, void* y,
                                       void* state, const long long* meta, int dtype,
-                                      void* stream) {
+                                      int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   SsmArgs a;
   a.x = x; a.dt = static_cast<const float*>(dt); a.decay = static_cast<const float*>(decay);
   a.bm = bm; a.cm = cm; a.y = y; a.state = static_cast<float*>(state);

@@ -91,7 +91,9 @@ __global__ void survive_base_kernel(const int32_t* __restrict__ acc,
 extern "C" int repro_validate_sequence(const void* acc, const void* a_len,
                                        long long n_txn, int k, int cap,
                                        void* fw, void* survive, void* bases,
-                                       void* stream) {
+                                       int device, void* stream) {
+  DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long n_lanes = n_txn * k;
   int32_t* fw_ = static_cast<int32_t*>(fw);

@@ -11,9 +11,13 @@ the sources and flags, so an edited source rebuilds and an unchanged one is
 loaded as it is.  Nothing here runs at import time: a machine without
 ``nvcc`` or a card imports the package and uses the plain versions.
 
-Every C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on anything but 0.
-:data:`LAUNCHES` counts, per kernel, the wrapper calls that launched it.
+Every C entry point takes the ordinal of its tensors' device and the
+caller's current stream (:func:`current_stream`).  It makes that device
+current for its own scope only (``csrc/device_guard.cuh``: ``cudaSetDevice``
+only when the caller's current device differs, restored on return),
+launches on that stream and returns ``cudaGetLastError()``; :func:`check`
+raises on anything but 0.  :data:`LAUNCHES` counts, per kernel, the wrapper
+calls that launched it.
 """
 
 from __future__ import annotations
@@ -26,12 +30,12 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("seg_reduce.cu", "scatter_max.cu", "validate_sequence.cu",
            "flash_attention.cu", "ssm_scan.cu", "rwkv6.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "device_guard.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -54,6 +58,9 @@ LAUNCHES: Dict[str, int] = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _build_log: str = ""
+# torch._C._cuda_getCurrentRawStream, looked up at the first launch: only
+# CUDA builds of torch have it
+_raw_stream: Optional[Callable[[int], int]] = None
 
 
 def reset_launches() -> None:
@@ -124,30 +131,34 @@ def build_log() -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (the lock is taken
+    only until it is loaded)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             dll = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            dll.repro_seg_reduce.argtypes = [p, p, ll, p, i, i, p]
+            # every launching entry point ends with (device ordinal, stream)
+            dll.repro_seg_reduce.argtypes = [p, p, ll, p, i, i, i, p]
             dll.repro_seg_reduce.restype = i
-            dll.repro_ssn_scatter_max.argtypes = [p, p, ll, p, p, p, ll, p, p, p, p]
+            dll.repro_ssn_scatter_max.argtypes = [p, p, ll, p, p, p, ll, p, p, i, p]
             dll.repro_ssn_scatter_max.restype = i
-            dll.repro_validate_sequence.argtypes = [p, p, ll, i, i, p, p, p, p]
+            dll.repro_validate_sequence.argtypes = [p, p, ll, i, i, p, p, p, i, p]
             dll.repro_validate_sequence.restype = i
             meta = ctypes.POINTER(ll)
             f = ctypes.c_float
-            dll.repro_flash_attention.argtypes = [p, p, p, p, meta, i, i, i, i, f, f, p]
+            dll.repro_flash_attention.argtypes = [p, p, p, p, meta, i, i, i, i, f, f, i, p]
             dll.repro_flash_attention.restype = i
-            dll.repro_ssm_scan_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, p]
+            dll.repro_ssm_scan_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, i, p]
             dll.repro_ssm_scan_chunked.restype = i
-            dll.repro_rwkv6_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, p]
+            dll.repro_rwkv6_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, i, p]
             dll.repro_rwkv6_chunked.restype = i
             dll.repro_cuda_error_string.argtypes = [i]
             dll.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = dll
-        return _lib
+    return _lib
 
 
 def check(err: int, name: str) -> None:
@@ -156,8 +167,14 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed ({err}: {msg})")
 
 
-def stream_of(t) -> int:
-    """The calling thread's current stream on ``t``'s device, as an int."""
-    import torch
+def current_stream(index: int) -> int:
+    """The calling thread's current stream on CUDA device ``index``, as the
+    raw ``cudaStream_t``: PyTorch's own getter, as Triton reads it, with no
+    ``torch.cuda.Stream`` object built.  Every kernel launches on it, never
+    on the legacy default stream or a stream of its own."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+        _raw_stream = torch._C._cuda_getCurrentRawStream
+    return _raw_stream(index)

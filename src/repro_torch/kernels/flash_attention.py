@@ -136,12 +136,11 @@ def flash_attention_fwd(
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(2),
     )
-    with torch.cuda.device(dev):
-        err = cuda.lib().repro_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta,
-            _DTYPES[q.dtype], d, int(causal), int(window or 0),
-            float(softcap or 0.0), 1.0 / math.sqrt(d), cuda.stream_of(out),
-        )
+    err = cuda.lib().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta,
+        _DTYPES[q.dtype], d, int(causal), int(window or 0),
+        float(softcap or 0.0), 1.0 / math.sqrt(d), dev.index, cuda.current_stream(dev.index),
+    )
     cuda.check(err, "flash_attention")
     cuda.LAUNCHES["flash_attention"] += 1
     return out

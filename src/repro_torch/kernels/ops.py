@@ -24,7 +24,7 @@ import torch
 from .batch_occ import seg_reduce as _seg_reduce
 from .batch_occ import validate_sequence as _validate_sequence
 from .bucketing import jit_cache_size
-from .scatter_max import NO_POS
+from .scatter_max import _scatter_max_blocks
 from .scatter_max import ssn_scatter_max as _ssn_scatter_max
 
 
@@ -85,11 +85,10 @@ def fused_replay_scan(scan: torch.Tensor, *, n_slots: int) -> Tuple[torch.Tensor
     position per write lane, bucket-padded to ``N`` with the identity lanes
     ``(n_slots, -1, NO_POS)`` (the overflow slot).  Returns the winning
     ``(ssn, pos)`` per slot under the ``(max ssn, then min pos)`` lattice —
-    the host resolves slot hash spills exactly afterwards.
+    the host resolves slot hash spills exactly afterwards.  The image is all
+    empty, so on the card none is built or read: one launch per call.
     """
-    image_ssn = torch.full((n_slots,), -1, dtype=torch.int32, device=scan.device)
-    image_pos = torch.full((n_slots,), int(NO_POS), dtype=torch.int32, device=scan.device)
-    return _ssn_scatter_max(image_ssn, image_pos, scan[0], scan[1], scan[2])
+    return _scatter_max_blocks(None, scan, n_slots)
 
 
 @_tracks_shapes
@@ -100,7 +99,7 @@ def fused_replay_apply(image: torch.Tensor, scan: torch.Tensor) -> Tuple[torch.T
     int32 block (ssn row, pos row — empty slots ``(-1, NO_POS)``); ``scan``
     is the ``(3, N)`` lane block with padding lanes pointing at the
     overflow slot ``S``."""
-    return _ssn_scatter_max(image[0], image[1], scan[0], scan[1], scan[2])
+    return _scatter_max_blocks(image, scan, image.shape[-1])
 
 
 @_tracks_shapes

@@ -132,11 +132,11 @@ def rwkv6_chunked(
         w.stride(0), w.stride(1), w.stride(2),
         y.stride(0), y.stride(1), y.stride(2),
     )
-    with torch.cuda.device(dev):
-        err = cuda.lib().repro_rwkv6_chunked(
-            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-            y.data_ptr(), state.data_ptr(), meta, _DTYPES[r.dtype], cuda.stream_of(y),
-        )
+    err = cuda.lib().repro_rwkv6_chunked(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        y.data_ptr(), state.data_ptr(), meta, _DTYPES[r.dtype], dev.index,
+        cuda.current_stream(dev.index),
+    )
     cuda.check(err, "rwkv6_chunked")
     cuda.LAUNCHES["rwkv6_chunked"] += 1
     return y, state

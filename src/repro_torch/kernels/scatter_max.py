@@ -18,22 +18,29 @@ key lies outside ``[0, S)`` are ignored: the pad key ``-1`` and the
 overflow slot ``S`` that bucket padding routes to.
 
 The kernel (``csrc/scatter_max.cu``) packs each ``(ssn, pos)`` pair into one
-unsigned 64-bit word and does one ``atomicMax`` per lane; it takes ssn and
-pos in ``[-1, 2**31 - 1]``, which every caller's padding and sentinels
+unsigned 64-bit word and does one ``atomicMax`` per lane into scratch words,
+then, after a grid-wide barrier in the same cooperative launch, joins the
+image, unpacks and clears the scratch: one launch per call.  It takes ssn
+and pos in ``[-1, 2**31 - 1]``, which every caller's padding and sentinels
 respect.  :func:`ssn_scatter_max_plain` is the two-scatter PyTorch version.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import cuda
-from .batch_occ import _check_i32
+from .batch_occ import _I32, _check_i32
 
 NO_POS = np.int32(np.iinfo(np.int32).max)
+
+#: the kernel's scratch per (device index, raw stream): int64 words, all 0
+#: between calls (the kernel clears every word it uses), grown to the
+#: largest S seen.  Keyed by stream, so that no two streams share one.
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def ssn_scatter_max_plain(
@@ -63,6 +70,57 @@ def ssn_scatter_max_plain(
     return out_ssn[:s], out_pos[:s]
 
 
+def _launch(like: torch.Tensor, s: int, w: int, image, lanes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one kernel launch behind every form, on the device of ``like``
+    (an int32 input): ``image`` is the pair of image row pointers,
+    ``(None, None)`` for an all-empty image that the kernel never reads;
+    ``lanes`` the key, ssn and pos pointers.  Returns the rows of one
+    ``(2, s)`` output block."""
+    index = like.get_device()
+    stream = cuda.current_stream(index)
+    slot = (index, stream)
+    scratch = _scratch.get(slot)
+    if scratch is None or scratch.shape[0] < s:
+        scratch = _scratch[slot] = like.new_zeros(s, dtype=torch.int64)
+    out = like.new_empty((2, s))
+    err = cuda.lib().repro_ssn_scatter_max(
+        image[0], image[1], s, lanes[0], lanes[1], lanes[2], w,
+        scratch.data_ptr(), out.data_ptr(), index, stream,
+    )
+    if err != 0:
+        _scratch.pop(slot, None)   # a refused or half-run call may leave words dirty
+        cuda.check(err, "ssn_scatter_max")
+    cuda.LAUNCHES["ssn_scatter_max"] += 1
+    return out.unbind(0)
+
+
+def _scatter_max_blocks(
+    image: Optional[torch.Tensor], scan: torch.Tensor, s: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ops.fused_replay_scan`` (``image`` None: an all-empty image of ``s``
+    slots, never built or read on the card) and ``ops.fused_replay_apply``
+    (``image`` a contiguous ``(2, s)`` block of ssn and pos rows): ``scan``
+    is one contiguous ``(3, N)`` block of key, ssn and pos rows.  On the card
+    the rows are addressed inside the blocks, with no views made.  On CPU
+    tensors the empty image is built and the plain version runs."""
+    dev = _check_i32("ssn_scatter_max", scan) if image is None else \
+        _check_i32("ssn_scatter_max", image, scan)
+    if scan.dim() != 2 or scan.shape[0] != 3 or (
+            image is not None and tuple(image.shape) != (2, s)):
+        raise ValueError(f"ssn_scatter_max: scan {tuple(scan.shape)} is not (3, N) or the "
+                         f"image is not (2, {s})")
+    if dev.type == "cpu":
+        img = (torch.full((s,), -1, dtype=_I32), torch.full((s,), int(NO_POS), dtype=_I32)) \
+            if image is None else image.unbind(0)
+        return ssn_scatter_max_plain(*img, *scan.unbind(0))
+    if s == 0:
+        return torch.empty((2, 0), dtype=_I32, device=dev).unbind(0)
+    w = scan.shape[1]
+    lanes = scan.data_ptr()
+    img = (None, None) if image is None else (image.data_ptr(), image.data_ptr() + 4 * s)
+    return _launch(scan, s, w, img, (lanes, lanes + 4 * w, lanes + 8 * w))
+
+
 def ssn_scatter_max(
     image_ssn: torch.Tensor,   # (S,) int32, -1 = empty slot
     image_pos: torch.Tensor,   # (S,) int32, -1 = checkpoint value, NO_POS = empty
@@ -82,16 +140,5 @@ def ssn_scatter_max(
         return ssn_scatter_max_plain(image_ssn, image_pos, key_id, ssn, pos)
     if s == 0:
         return image_ssn.clone(), image_pos.clone()
-    scratch = torch.empty(s, dtype=torch.int64, device=dev)
-    out_ssn = torch.empty(s, dtype=torch.int32, device=dev)
-    out_pos = torch.empty(s, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = cuda.lib().repro_ssn_scatter_max(
-            image_ssn.data_ptr(), image_pos.data_ptr(), s,
-            key_id.data_ptr(), ssn.data_ptr(), pos.data_ptr(), w,
-            scratch.data_ptr(), out_ssn.data_ptr(), out_pos.data_ptr(),
-            cuda.stream_of(out_ssn),
-        )
-    cuda.check(err, "ssn_scatter_max")
-    cuda.LAUNCHES["ssn_scatter_max"] += 1
-    return out_ssn, out_pos
+    return _launch(key_id, s, w, (image_ssn.data_ptr(), image_pos.data_ptr()),
+                   (key_id.data_ptr(), ssn.data_ptr(), pos.data_ptr()))

@@ -131,12 +131,11 @@ def ssm_scan_chunked(
         cmat.stride(0), cmat.stride(1),
         y.stride(0), y.stride(1), y.stride(2),
     )
-    with torch.cuda.device(dev):
-        err = cuda.lib().repro_ssm_scan_chunked(
-            x.data_ptr(), dt.data_ptr(), decay.data_ptr(), bmat.data_ptr(),
-            cmat.data_ptr(), y.data_ptr(), state.data_ptr(), meta,
-            _DTYPES[x.dtype], cuda.stream_of(y),
-        )
+    err = cuda.lib().repro_ssm_scan_chunked(
+        x.data_ptr(), dt.data_ptr(), decay.data_ptr(), bmat.data_ptr(),
+        cmat.data_ptr(), y.data_ptr(), state.data_ptr(), meta,
+        _DTYPES[x.dtype], dev.index, cuda.current_stream(dev.index),
+    )
     cuda.check(err, "ssm_scan_chunked")
     cuda.LAUNCHES["ssm_scan_chunked"] += 1
     return y, state

@@ -21,7 +21,8 @@ from repro_torch.db import ArrayTable, BatchOCC
 from repro_torch.db import ycsb
 from repro_torch.kernels import cuda
 from repro_torch.kernels import ops
-from repro_torch.kernels.batch_occ import seg_reduce_plain, validate_sequence_plain
+from repro_torch.kernels import scatter_max as smx
+from repro_torch.kernels.batch_occ import seg_reduce, seg_reduce_plain, validate_sequence_plain
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.ref import scatter_max_ref, seg_reduce_ref
 from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
@@ -87,6 +88,114 @@ def test_seg_reduce_kernel_equals_plain(cuda_device, op, w, n_slots):
     keep = key >= 0
     assert np.array_equal(got.cpu().numpy(),
                           seg_reduce_ref(key[keep], val[keep], n_slots, op))
+
+
+def _scratch_is_clean():
+    index = torch.cuda.current_device()
+    bufs = [b for (i, _), b in smx._scratch.items() if i == index]
+    return bool(bufs) and all(not bool(b.any()) for b in bufs)
+
+
+def test_ssn_scatter_max_scratch_comes_back_clean(cuda_device):
+    """Calls at S = 2^14, then 2^10, then 2^16, twice, on one stream share
+    one scratch buffer: each equals the plain version, which a word left
+    dirty by the call before could break, and the scratch is all zero after
+    each."""
+    for i, s in enumerate((1 << 14, 1 << 10, 1 << 16) * 2):
+        arrs = _scatter_arrays(np.random.default_rng(i), s, 4 * s)
+        args = [_t(a, cuda_device) for a in arrs]
+        got = ops.ssn_scatter_max(*args)
+        torch.cuda.synchronize()
+        want = ssn_scatter_max_plain(*args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), s
+        assert _scratch_is_clean(), s
+
+
+@pytest.mark.parametrize("s,w", [(1 << 14, 1 << 16), (1000, 37), (5, 0)])
+def test_no_image_scan_equals_the_cpu(cuda_device, s, w):
+    """``fused_replay_scan`` passes no image to the kernel: one launch, and
+    the result of the CPU's plain version on an all-empty image."""
+    _, _, key, ssn, pos = _scatter_arrays(np.random.default_rng(s), s, w)
+    scan = np.stack([key, ssn, pos])
+    n0 = cuda.LAUNCHES["ssn_scatter_max"]
+    got = ops.fused_replay_scan(_t(scan, cuda_device), n_slots=s)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["ssn_scatter_max"] == n0 + 1
+    want = ops.fused_replay_scan(_t(scan, "cpu"), n_slots=s)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert _scratch_is_clean()
+
+
+def test_kernels_launch_on_the_callers_stream(cuda_device):
+    """Under ``torch.cuda.stream(side)`` the inputs are written on ``side``
+    just after a long kernel there: a launch on any other stream would read
+    the stale inputs (all pad lanes / all keys -1) and the test would fail."""
+    s, w = 1 << 12, 1 << 14
+    arrs = _scatter_arrays(np.random.default_rng(5), s, w)
+    host = [_t(a, "cpu").pin_memory() for a in arrs]
+    stale = [torch.full((len(a),), -1, dtype=torch.int32, device=cuda_device) for a in arrs]
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        for dst, src in zip(stale, host):
+            dst.copy_(src, non_blocking=True)
+        got = ops.ssn_scatter_max(*stale)
+        got_seg = seg_reduce(stale[2], stale[4], s, op="min")
+    side.synchronize()
+    want = ssn_scatter_max_plain(*host)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got_seg.cpu(), seg_reduce_plain(host[2], host[4], s, "min"))
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("n_slots,w", [(1 << 19, 1 << 16), (464_897, 1 << 18), (1 << 21, 1 << 12)])
+def test_seg_reduce_one_launch_at_large_sizes(cuda_device, op, n_slots, w):
+    """More slots than items, and more than any block's shared memory holds:
+    one cooperative launch fills and scatters them all."""
+    rng = np.random.default_rng(n_slots + w)
+    key = rng.integers(-1, n_slots + 2, w).astype(np.int32)     # pads at -1, n_slots
+    key[:64] = n_slots - 1                                      # the last slot
+    val = rng.integers(0, 1 << 30, w).astype(np.int32)
+    k, v = _t(key, cuda_device), _t(val, cuda_device)
+    n0 = cuda.LAUNCHES["seg_reduce"]
+    got = seg_reduce(k, v, n_slots, op=op)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["seg_reduce"] == n0 + 1
+    assert torch.equal(got, seg_reduce_plain(k, v, n_slots, op))
+
+
+def _ops_per_call(fn, calls=10):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):    # the profiler may drop a window's events: take it again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if (getattr(e, "self_device_time_total", None)
+                    or getattr(e, "self_cuda_time_total", 0)))
+        if n >= calls:
+            break
+    return n / calls
+
+
+def test_one_device_operation_per_call(cuda_device):
+    """Under the profiler: one device operation per call for the scatter
+    (with an image, and in the no-image scan form) and for the segmented
+    reduce, min and max."""
+    arrs = _scatter_arrays(np.random.default_rng(9), 1 << 16, 1 << 15)
+    args = [_t(a, cuda_device) for a in arrs]
+    scan = torch.stack(args[2:])
+    key = _t(np.random.default_rng(1).integers(-1, 1 << 14, 1 << 16), cuda_device)
+    val = _t(np.random.default_rng(2).integers(0, 1 << 30, 1 << 16), cuda_device)
+    assert _ops_per_call(lambda: ops.ssn_scatter_max(*args)) == 1
+    assert _ops_per_call(lambda: ops.fused_replay_scan(scan, n_slots=1 << 16)) == 1
+    for op in ("max", "min"):
+        assert _ops_per_call(lambda: seg_reduce(key, val, 1 << 14, op=op)) == 1
 
 
 @pytest.mark.parametrize("n_txn,k,cap", [(1 << 12, 16, 1 << 14), (8, 1, 64), (64, 4, 32)])

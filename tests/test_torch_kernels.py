@@ -24,7 +24,7 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.bucketing import ladder
 from repro_torch.kernels.ref import scatter_max_ref, seg_reduce_ref
-from repro_torch.kernels.scatter_max import NO_POS
+from repro_torch.kernels.scatter_max import NO_POS, _scatter_max_blocks
 
 I32_MAX = np.iinfo(np.int32).max
 
@@ -139,6 +139,20 @@ def test_fused_replay_ops_match_reference(n_slots, n_lanes):
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
 
 
+@pytest.mark.parametrize("n_slots,n_lanes", [(96, 300), (1000, 4096)])
+def test_no_image_scatter_matches_reference_scan(n_slots, n_lanes):
+    """The launch helper with no image (what ``fused_replay_scan`` runs) on
+    CPU tensors: an all-empty image, both pad conventions skipped."""
+    _, _, key, ssn, pos = _scatter_case(n_slots, n_lanes, 0.0, seed=n_slots + 3)
+    key, ssn, pos = _pad_lanes(key, ssn, pos, n_slots, 7)
+    scan = np.stack([key, ssn, pos])
+    ref = jops.fused_replay_scan(scan, n_slots=n_slots)
+    key, ssn, pos = _pad_lanes(key, ssn, pos, -1, 5)
+    got = _scatter_max_blocks(None, _t(np.stack([key, ssn, pos])), n_slots)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+
+
 # --- seg_reduce -------------------------------------------------------------------
 
 @pytest.mark.parametrize("op", ["max", "min"])
@@ -225,4 +239,33 @@ def test_wrappers_reject_wrong_dtype():
     with pytest.raises(TypeError):
         tops.occ_seg_reduce(torch.zeros(4, dtype=torch.int64),
                             torch.zeros(4, dtype=torch.int64), n_slots=4)
+
+
+def _i32(*shape):
+    return torch.zeros(shape, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("call,error", [
+    (lambda: tops.ssn_scatter_max(_i32(4), _i32(4).long(), _i32(2), _i32(2), _i32(2)), TypeError),
+    (lambda: tops.ssn_scatter_max(_i32(4), _i32(4), _i32(2), _i32(3), _i32(2)), ValueError),
+    (lambda: tops.ssn_scatter_max(_i32(4), _i32(5), _i32(2), _i32(2), _i32(2)), ValueError),
+    (lambda: tops.ssn_scatter_max(_i32(4), _i32(4), _i32(2, 2).t()[0], _i32(2), _i32(2)),
+     ValueError),
+    (lambda: tops.fused_replay_scan(_i32(2, 8), n_slots=4), ValueError),
+    (lambda: tops.fused_replay_scan(_i32(3, 8).float(), n_slots=4), TypeError),
+    (lambda: tops.fused_replay_scan(_i32(3, 16)[:, ::2], n_slots=4), ValueError),
+    (lambda: tops.fused_replay_apply(_i32(2, 4), _i32(3, 8)[:, ::2]), ValueError),
+    (lambda: tops.fused_replay_apply(_i32(3, 4), _i32(3, 8)), ValueError),
+    (lambda: tops.occ_seg_reduce(_i32(4), _i32(5), n_slots=4), ValueError),
+    (lambda: tops.occ_seg_reduce(_i32(4), _i32(4), n_slots=4, op="sum"), ValueError),
+    (lambda: tops.fused_validate_sequence(_i32(6, 8), _i32(3), n_txn=4, k=2, cap=8),
+     ValueError),
+])
+def test_wrappers_reject_what_the_kernels_do_not_take(call, error):
+    """Every check of the launch path holds on CPU tensors too: dtype,
+    lengths, contiguity, layout and op."""
+    before = dict(cuda.LAUNCHES)
+    with pytest.raises(error):
+        call()
+    assert cuda.LAUNCHES == before
 
