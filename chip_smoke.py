@@ -22,9 +22,10 @@ together), and then:
    heads of 64, full and window 1024, bfloat16 and float32, plus a ragged
    S=1000 and a bfloat16 full-causal D=128 case with 12 query and 2 KV
    heads), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
-   and bfloat16, plus S=1000) and the chunked wkv6 recurrence (rwkv6-7b's
-   prefill shape, B=8, H=64, S=2048, K=V=64, float32 and bfloat16, plus
-   S=1000) within stated tolerances;
+   and bfloat16, plus S=1000; with its device operations per call and the
+   device ms of each of its three launches) and the chunked wkv6
+   recurrence (rwkv6-7b's prefill shape, B=8, H=64, S=2048, K=V=64,
+   float32 and bfloat16, plus S=1000) within stated tolerances;
 3. drives the OLTP main path: YCSB (paper §6.2, one table, key plus 10
    columns of 100 B) with 1,000,000 rows through ``BatchOCC(mode="kernel")``
    onto four path-backed SSD devices, alternating write-only and hybrid
@@ -58,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -200,6 +202,16 @@ def _per_call_device_ms(fn, calls: int = 20):
     return sum(ms for ms, _ in rows.values()) / calls if rows else None
 
 
+def _profiled_calls(fn, calls: int):
+    """``_device_ms`` rows of ``calls`` calls of ``fn``, with at least one
+    device operation per call."""
+    for _ in range(3):    # the profiler may drop a window's events: take it again
+        _, rows = _device_ms(lambda: [fn() for _ in range(calls)])
+        if sum(n for _, n in rows.values()) >= calls:
+            break
+    return rows
+
+
 def _launch_readings(fn, calls: int = 20, host_calls: int = 200):
     """A wrapper's launch path: ``ms`` (CUDA events around one call, median),
     ``device_ms`` and ``device_ops_per_call`` (every kernel, copy and fill
@@ -207,10 +219,7 @@ def _launch_readings(fn, calls: int = 20, host_calls: int = 200):
     clock over ``host_calls`` calls with no synchronisation between them:
     the enqueue cost)."""
     ms = _median_ms(fn)
-    for _ in range(3):    # the profiler may drop a window's events: take it again
-        _, rows = _device_ms(lambda: [fn() for _ in range(calls)])
-        if sum(n for _, n in rows.values()) >= calls:
-            break
+    rows = _profiled_calls(fn, calls)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(host_calls):
@@ -498,11 +507,20 @@ def _ssm_case(gen, b, s, dtype, dev):
     esz = x.element_size()
     nbytes = 2 * esz * b * h * s * p + 2 * 4 * b * h * s + 2 * esz * b * s * n + 4 * b * h * p * n
     flops = 5 * b * h * s * p * n         # per step: decay, input, add; y = C.h
+    calls = 5
+    rows = _profiled_calls(lambda: ssm_scan_chunked(*args), calls)
+    phases = {}           # device ms per call of each of the kernel's launches
+    for key, (ms, _) in rows.items():
+        m = re.search(r"ssm_chunked_\w+?_kernel", key)
+        name = m.group(0) if m else key[:60]
+        phases[name] = phases.get(name, 0.0) + ms / calls
     return dict(
         name="ssm_scan_chunked", max_abs_err=err, tol=LLM_TOL[dtype],
         shape=f"B={b} H={h} S={s} P={p} N={n} {str(dtype)[6:]}",
         ms=_median_ms(lambda: ssm_scan_chunked(*args)),
-        device_ms=_per_call_device_ms(lambda: ssm_scan_chunked(*args), 5),
+        device_ms=sum(phases.values()) if rows else None,
+        device_ops_per_call=sum(c for _, c in rows.values()) / calls if rows else None,
+        phase_device_ms=phases,
         plain_ms=_median_ms(lambda: ssm_scan_chunked_plain(*args), reps=5),
         bound=_bound(nbytes, flops, FP32_FLOPS), library_ms=None,
         source="src/repro_torch/kernels/csrc/ssm_scan.cu",
@@ -969,7 +987,9 @@ def main(argv=None) -> int:
     llm_cases = check_llm_kernels(args.seed)
     for k in llm_cases:
         print(f"kernel {k['name']} ({k['shape']}): max abs err {k['max_abs_err']:.3g} "
-              f"(atol {k['tol'][0]}, rtol {k['tol'][1]}); {k['ms']:.4f} ms (device {k['device_ms']} ms), plain "
+              f"(atol {k['tol'][0]}, rtol {k['tol'][1]}); {k['ms']:.4f} ms (device {k['device_ms']} ms"
+              + (f", {k['device_ops_per_call']} device ops per call: {k['phase_device_ms']}"
+                 if "phase_device_ms" in k else "") + "), plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound'][0]:.4f} ms ({k['bound'][1]})"
               f", library {k['library_ms']} ms | {smi}")
     print("llm_kernel_cases " + json.dumps(llm_cases, default=float))

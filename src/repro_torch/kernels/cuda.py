@@ -151,7 +151,7 @@ def lib() -> ctypes.CDLL:
             f = ctypes.c_float
             dll.repro_flash_attention.argtypes = [p, p, p, p, meta, i, i, i, i, f, f, i, p]
             dll.repro_flash_attention.restype = i
-            dll.repro_ssm_scan_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, i, p]
+            dll.repro_ssm_scan_chunked.argtypes = [p, p, p, p, p, p, p, p, meta, i, i, p]
             dll.repro_ssm_scan_chunked.restype = i
             dll.repro_rwkv6_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, i, p]
             dll.repro_rwkv6_chunked.restype = i

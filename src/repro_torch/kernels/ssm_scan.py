@@ -18,8 +18,11 @@ and ``decay = 1`` (so ``u = 0`` and the state is carried unchanged).
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/ssm_scan.cu``: chunk 64, N ≤ 32, x/B/C float32 or bfloat16 of one
-type, dt and decay float32, any strides with a contiguous last dim); on a
-CPU tensor it runs :func:`ssm_scan_chunked_plain`.
+type, dt and decay float32, any strides with a contiguous last dim), a
+chunk-parallel scan in three device launches (chunk states, one pass over
+the chunks for the state, then the outputs) through one float32 scratch of
+``B·H·nc·(P·N + 1)`` elements for ``nc = ceil(S / 64)`` chunks; on a CPU
+tensor it runs :func:`ssm_scan_chunked_plain`.
 """
 
 from __future__ import annotations
@@ -122,6 +125,9 @@ def ssm_scan_chunked(
     if y.stride(-1) != 1:
         y = torch.empty(x.shape, dtype=x.dtype, device=dev)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    # per chunk: its state contribution, then the state entering it; its decay
+    nc = -(-s // DEFAULT_CHUNK)
+    scratch = x.new_empty(b * h * nc * (p * n + 1), dtype=torch.float32)
     meta = (ctypes.c_longlong * 21)(
         b, h, s, p, n,
         x.stride(0), x.stride(1), x.stride(2),
@@ -133,7 +139,7 @@ def ssm_scan_chunked(
     )
     err = cuda.lib().repro_ssm_scan_chunked(
         x.data_ptr(), dt.data_ptr(), decay.data_ptr(), bmat.data_ptr(),
-        cmat.data_ptr(), y.data_ptr(), state.data_ptr(), meta,
+        cmat.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(), meta,
         _DTYPES[x.dtype], dev.index, cuda.current_stream(dev.index),
     )
     cuda.check(err, "ssm_scan_chunked")

@@ -387,7 +387,11 @@ def _ssm_inputs(b, h, s, p, n, dtype, dev, seed):
 @pytest.mark.parametrize(
     "b,h,s,p,n",
     [(1, 2, 128, 16, 8), (2, 3, 64, 32, 16), (1, 1, 256, 8, 4),
-     (2, 25, 1000, 64, 16), (1, 2, 77, 96, 32)],
+     (2, 25, 1000, 64, 16), (1, 2, 77, 96, 32),
+     (2, 25, 50, 64, 16),       # one chunk: a state pass of one step
+     (1, 4, 4096, 64, 16),      # 64 chunks
+     (1, 1, 300, 64, 16),       # B*H = 1 at hymba's widths
+     (1, 3, 100, 30, 8)],       # P % 4 != 0: rows move element by element
 )
 def test_ssm_scan_kernel_matches_plain(cuda_device, b, h, s, p, n, dtype):
     args = _ssm_inputs(b, h, s, p, n, dtype, cuda_device, s + p)
@@ -399,6 +403,32 @@ def test_ssm_scan_kernel_matches_plain(cuda_device, b, h, s, p, n, dtype):
     assert y.dtype == dtype and st.dtype == torch.float32
     torch.testing.assert_close(y.float(), yw.float(), **_ftol(dtype))
     torch.testing.assert_close(st, stw, atol=2e-4, rtol=2e-4)
+
+
+def test_ssm_scan_kernel_strong_decay_is_finite(cuda_device):
+    """Decay at the 1e-30 clamp in some steps: exp(la) underflows to 0 from
+    there on in the chunk, and every exponent stays a difference <= 0."""
+    x, dt, decay, bm, cm = _ssm_inputs(2, 25, 1000, 64, 16, torch.float32, cuda_device, 5)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    hit = torch.rand(decay.shape, generator=g, device=cuda_device) < 0.05
+    decay = torch.where(hit, torch.full_like(decay, 1e-30), decay)
+    decay[:, :, 64:70] = 0.0            # below the clamp
+    y, st = ssm_scan_chunked(x, dt, decay, bm, cm)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yw, stw = ssm_scan_chunked_plain(x, dt, decay, bm, cm)
+    torch.testing.assert_close(y, yw, **_ftol(torch.float32))
+    torch.testing.assert_close(st, stw, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssm_scan_kernel_is_deterministic(cuda_device, dtype):
+    """No atomics: two calls on the same inputs give the same bits."""
+    args = _ssm_inputs(2, 25, 1000, 64, 16, dtype, cuda_device, 11)
+    y1, st1 = ssm_scan_chunked(*args)
+    y2, st2 = ssm_scan_chunked(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(st1, st2)
 
 
 def test_ssm_scan_kernel_takes_model_layout(cuda_device):

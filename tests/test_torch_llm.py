@@ -191,6 +191,21 @@ def test_configs_and_groups_are_the_references(arch):
                [dataclasses.astuple(g) for g in jlayer_groups(jcfg)]
 
 
+def test_rwkv_param_count_divergence_is_the_references():
+    """The analytic count of the rwkv family (``ArchConfig.n_params``, the
+    reference's formula) takes the channel mix as 1.5·d·f where the model
+    holds 2·d·f + d², and leaves out the norms, the token-shift mixes, the
+    decay's base ``w0`` and the bonus ``u``.  On reduced rwkv6 the config
+    says 100,352 and the port's model holds 118,784; the reference's
+    config says the same 100,352."""
+    cfg = reduced(get_config("rwkv6-7b"))
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    held = sum(p.numel() for p in model.lm.parameters())
+    assert cfg.n_params() == 100_352 and held == 118_784
+    assert cfg.n_params() != held
+    assert jreduced(jget_config("rwkv6-7b")).n_params() == cfg.n_params()
+
+
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "tinyllama-1.1b", "qwen2-1.5b", "stablelm-12b",
                                   "deepseek-7b", "rwkv6-7b"])
 def test_param_and_cache_specs_are_the_references(arch):
