@@ -25,7 +25,9 @@ together), and then:
    and bfloat16, plus S=1000; with its device operations per call and the
    device ms of each of its three launches) and the chunked wkv6
    recurrence (rwkv6-7b's prefill shape, B=8, H=64, S=2048, K=V=64,
-   float32 and bfloat16, plus S=1000) within stated tolerances;
+   float32 and bfloat16, plus S=1000; with its device operations per call,
+   which must be 3, and the device ms of each of its three launches)
+   within stated tolerances;
 3. drives the OLTP main path: YCSB (paper §6.2, one table, key plus 10
    columns of 100 B) with 1,000,000 rows through ``BatchOCC(mode="kernel")``
    onto four path-backed SSD devices, alternating write-only and hybrid
@@ -202,12 +204,12 @@ def _per_call_device_ms(fn, calls: int = 20):
     return sum(ms for ms, _ in rows.values()) / calls if rows else None
 
 
-def _profiled_calls(fn, calls: int):
-    """``_device_ms`` rows of ``calls`` calls of ``fn``, with at least one
-    device operation per call."""
+def _profiled_calls(fn, calls: int, per_call: int = 1):
+    """``_device_ms`` rows of ``calls`` calls of ``fn``, with at least
+    ``per_call`` device operations per call."""
     for _ in range(3):    # the profiler may drop a window's events: take it again
         _, rows = _device_ms(lambda: [fn() for _ in range(calls)])
-        if sum(n for _, n in rows.values()) >= calls:
+        if sum(n for _, n in rows.values()) >= per_call * calls:
             break
     return rows
 
@@ -553,11 +555,22 @@ def _rwkv6_case(gen, b, s, dtype, dev):
     err = max(_close(y, yw, dtype), _close(st, stw, torch.float32))
     esz = r.element_size()
     nbytes = esz * 4 * b * h * s * kd + 4 * b * h * s * kd + 4 * h * kd + 4 * b * h * kd * kd
+    calls = 5
+    rows = _profiled_calls(lambda: rwkv6_chunked(*args), calls, per_call=3)
+    phases = {}           # device ms per call of each of the kernel's launches
+    for key, (ms, _) in rows.items():
+        m = re.search(r"rwkv6_chunked_\w+?_kernel", key)
+        name = m.group(0) if m else key[:60]
+        phases[name] = phases.get(name, 0.0) + ms / calls
+    ops = sum(c for _, c in rows.values()) / calls if rows else None
+    assert ops == 3, f"rwkv6_chunked: {ops} device operations per call, not 3: {phases}"
     return dict(
         name="rwkv6_chunked", max_abs_err=err, tol=LLM_TOL[dtype],
         shape=f"B={b} H={h} S={s} K=V={kd} {str(dtype)[6:]}",
         ms=_median_ms(lambda: rwkv6_chunked(*args)),
-        device_ms=_per_call_device_ms(lambda: rwkv6_chunked(*args), 5),
+        device_ms=sum(phases.values()),
+        device_ops_per_call=ops,
+        phase_device_ms=phases,
         plain_ms=_median_ms(lambda: rwkv6_chunked_plain(*args), reps=5),
         bound=_bound(nbytes, _rwkv6_flops(b, h, s, kd, kd), FP32_FLOPS), library_ms=None,
         source="src/repro_torch/kernels/csrc/rwkv6.cu",

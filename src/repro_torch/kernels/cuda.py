@@ -153,7 +153,7 @@ def lib() -> ctypes.CDLL:
             dll.repro_flash_attention.restype = i
             dll.repro_ssm_scan_chunked.argtypes = [p, p, p, p, p, p, p, p, meta, i, i, p]
             dll.repro_ssm_scan_chunked.restype = i
-            dll.repro_rwkv6_chunked.argtypes = [p, p, p, p, p, p, p, meta, i, i, p]
+            dll.repro_rwkv6_chunked.argtypes = [p, p, p, p, p, p, p, p, meta, i, i, p]
             dll.repro_rwkv6_chunked.restype = i
             dll.repro_cuda_error_string.argtypes = [i]
             dll.repro_cuda_error_string.restype = ctypes.c_char_p

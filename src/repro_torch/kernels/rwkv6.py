@@ -21,9 +21,14 @@ Any S is taken: a ragged tail is padded with r = k = v = 0 and w = 1 (log
 decay 0), which leaves y and the state exactly unchanged.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/rwkv6.cu``: chunk 32, K and V in [1, 64], r/k/v float32 or
+(``csrc/rwkv6.cu``: inner chunk 32, K and V in [1, 64], r/k/v float32 or
 bfloat16 of one type, w and u float32, any strides with a contiguous last
-dim); on a CPU tensor it runs :func:`rwkv6_chunked_plain`.
+dim), a chunk-parallel scan in three device launches over state chunks of
+``STATE_CHUNK`` = 128 steps (each state chunk's own state contribution and
+decay, one pass over the state chunks for the state entering each, then
+the outputs) through one float32 scratch of ``B·H·nc·(K·V + K)`` elements
+for ``nc = ceil(S / 128)``; on a CPU tensor it runs
+:func:`rwkv6_chunked_plain`.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 from . import cuda
 
 CHUNK = 32
+STATE_CHUNK = 128      # steps per state chunk of the kernel (kL in csrc/rwkv6.cu)
 KERNEL_MAX_DIM = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -124,6 +130,9 @@ def rwkv6_chunked(
     if y.stride(-1) != 1:
         y = torch.empty(v.shape, dtype=v.dtype, device=dev)
     state = torch.empty((b, h, kd, vd), dtype=torch.float32, device=dev)
+    # per state chunk: its state contribution, then the state entering it; its decay
+    nc = -(-s // STATE_CHUNK)
+    scratch = r.new_empty(b * h * nc * (kd * vd + kd), dtype=torch.float32)
     meta = (ctypes.c_longlong * 20)(
         b, h, s, kd, vd,
         r.stride(0), r.stride(1), r.stride(2),
@@ -134,7 +143,7 @@ def rwkv6_chunked(
     )
     err = cuda.lib().repro_rwkv6_chunked(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        y.data_ptr(), state.data_ptr(), meta, _DTYPES[r.dtype], dev.index,
+        y.data_ptr(), state.data_ptr(), scratch.data_ptr(), meta, _DTYPES[r.dtype], dev.index,
         cuda.current_stream(dev.index),
     )
     cuda.check(err, "rwkv6_chunked")

@@ -165,7 +165,7 @@ def test_seg_reduce_one_launch_at_large_sizes(cuda_device, op, n_slots, w):
     assert torch.equal(got, seg_reduce_plain(k, v, n_slots, op))
 
 
-def _ops_per_call(fn, calls=10):
+def _ops_per_call(fn, calls=10, per_call=1):
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -178,7 +178,7 @@ def _ops_per_call(fn, calls=10):
         n = sum(e.count for e in prof.key_averages()
                 if (getattr(e, "self_device_time_total", None)
                     or getattr(e, "self_cuda_time_total", 0)))
-        if n >= calls:
+        if n >= per_call * calls:
             break
     return n / calls
 
@@ -488,7 +488,13 @@ def _rwkv6_inputs(b, h, s, kd, vd, dtype, dev, seed, w_lo=0.5):
 @pytest.mark.parametrize(
     "b,h,s,kd,vd",
     [(1, 2, 64, 16, 16), (2, 4, 100, 16, 16), (1, 1, 96, 64, 64), (2, 8, 1000, 64, 64),
-     (1, 2, 77, 64, 64), (1, 3, 33, 32, 48)],
+     (1, 2, 77, 64, 64), (1, 3, 33, 32, 48),
+     # rwkv6-7b's heads across the state chunks (128 steps) and inner chunks
+     # (32): one step, a ragged inner chunk, one whole state chunk, one step
+     # past it, a ragged tail of 5 in a fourth state chunk, and the main shape
+     (1, 64, 1, 64, 64), (1, 64, 31, 64, 64), (1, 64, 128, 64, 64),
+     (1, 64, 129, 64, 64), (1, 64, 389, 64, 64), (1, 64, 2048, 64, 64),
+     (2, 3, 150, 30, 18)],      # K, V % 4 != 0: rows move element by element
 )
 def test_rwkv6_kernel_matches_plain(cuda_device, b, h, s, kd, vd, dtype):
     args = _rwkv6_inputs(b, h, s, kd, vd, dtype, cuda_device, s + kd)
@@ -511,6 +517,31 @@ def test_rwkv6_kernel_strong_decay_is_finite(cuda_device):
     yw, stw = rwkv6_chunked_plain(r, k, v, w, u)
     torch.testing.assert_close(y, yw, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(st, stw, atol=2e-4, rtol=2e-4)
+
+
+def test_rwkv6_kernel_clamped_decay_matches_plain(cuda_device):
+    """5% of decays at the 1e-30 clamp and a run of 40 clamped steps across
+    the state-chunk boundary at 128: the state chunk's decay underflows to 0,
+    and every exponent stays a difference of cumsums within one inner chunk."""
+    r, k, v, w, u = _rwkv6_inputs(2, 4, 1000, 64, 64, torch.float32, cuda_device, 12)
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    hit = torch.rand(w.shape, generator=g, device=cuda_device) < 0.05
+    w = torch.where(hit, torch.full_like(w, 1e-30), w)
+    w[:, :, 108:148] = 1e-30
+    y, st = rwkv6_chunked(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yw, stw = rwkv6_chunked_plain(r, k, v, w, u)
+    torch.testing.assert_close(y, yw, **_ftol(torch.float32))
+    torch.testing.assert_close(st, stw, **_ftol(torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_kernel_three_device_operations_per_call(cuda_device, dtype):
+    """Under the profiler: the state kernel, the state pass and the output
+    kernel, and nothing else (the scratch is allocated, not filled)."""
+    args = _rwkv6_inputs(2, 64, 1000, 64, 64, dtype, cuda_device, 14)
+    assert _ops_per_call(lambda: rwkv6_chunked(*args), per_call=3) == 3
 
 
 def test_rwkv6_kernel_takes_model_layout(cuda_device):
