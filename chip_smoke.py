@@ -14,8 +14,11 @@ together), and then:
    seeded random inputs at its main path's shapes, and times both (CUDA
    events, median after warm-up) beside the one PyTorch call that computes
    the same function, where there is one: the three OLTP kernels exactly,
-   each with its device operations and host microseconds per call
-   (``ssn_scatter_max`` also in recovery's no-image scan form and at a
+   each with its device operations per call, which must be one, and host
+   microseconds per call (``validate_sequence`` at the hybrid and at the
+   write-only round's shape, then on rounds with no writer after a round
+   with writers on the same first-writer scratch, at a smaller and a larger
+   cap; ``ssn_scatter_max`` also in recovery's no-image scan form and at a
    smaller and a larger S on the same scratch, which must come back all
    zero; ``seg_reduce`` min and max also at 2^19 slots);
    flash attention (hymba's prefill shape, B=8, S=T=2048, 25 query and 5 KV
@@ -247,16 +250,20 @@ def _bound(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S):
 
 # --- phase 2: each kernel against its plain version ---------------------------
 
-def _validate_inputs(rng, dev):
+def _validate_inputs(rng, dev, write_only=False):
     """The fused round of a hybrid batch: 65,536 txns x 16 lanes (10 reads
-    plus 1 write each, the rest masked), rows over 1,000,000 tuples."""
-    n_txn, k, cap = 1 << 16, 16, 1 << 20
+    plus 1 write each, the rest masked), rows over 1,000,000 tuples; or,
+    ``write_only``, that of a write-only batch: 65,536 txns of one write
+    lane each.  Returns the wrapper's arguments, the bound's bytes (lanes,
+    a_len and outputs), this design's floor bytes (plus 8 B per written
+    row), the operations and the shape."""
+    n_txn, k, cap = 1 << 16, (1 if write_only else 16), 1 << 20
     lanes = n_txn * k
     lane = np.tile(np.arange(k), n_txn)
     acc = np.empty((6, lanes), np.int32)
     acc[0] = rng.integers(0, 1_000_000, lanes)
     acc[1] = np.repeat(np.arange(n_txn), k)
-    acc[2] = lane == 10
+    acc[2] = lane == (0 if write_only else 10)
     ssn = rng.integers(0, 1 << 20, lanes).astype(np.int32)
     acc[4] = ssn
     obs = np.full(lanes, -1, np.int32)
@@ -264,12 +271,56 @@ def _validate_inputs(rng, dev):
     obs[seen] = ssn[seen] + (rng.random(seen.sum()) < 0.3)   # some stale
     acc[3] = obs
     acc[5] = rng.random(lanes) < 0.01
-    a_len = np.full(n_txn, 11, np.int32)
-    a_len[-1000:] = 0                                         # padded txns
+    a_len = np.full(n_txn, k if write_only else 11, np.int32)
+    if not write_only:
+        a_len[-1000:] = 0                                     # padded txns
     args = (torch.from_numpy(acc).to(dev), torch.from_numpy(a_len).to(dev), n_txn, k, cap)
     nbytes = acc.nbytes + a_len.nbytes + n_txn * (1 + 4)
+    written = acc[0][(acc[2] != 0) & (lane < np.repeat(a_len, k))]
+    floor = nbytes + 8 * np.unique(written).size
     ops = 8 * lanes
-    return args, nbytes, ops, f"acc (6, {lanes}) int32, n_txn={n_txn}, k={k}, cap={cap}"
+    return args, nbytes, floor, ops, f"acc (6, {lanes}) int32, n_txn={n_txn}, k={k}, cap={cap}"
+
+
+def _validate_case(rng, dev, write_only=False):
+    """``validate_sequence`` against its plain version (exact, one device
+    operation per call) and its readings."""
+    args, nbytes, floor, ops, shape = _validate_inputs(rng, dev, write_only)
+    got = validate_sequence(*args)
+    torch.cuda.synchronize()
+    want = validate_sequence_plain(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), f"validate_sequence != plain: {shape}"
+    assert bool(got[0].any()) and not bool(got[0].all()), f"degenerate survive mask: {shape}"
+    readings = _launch_readings(lambda: validate_sequence(*args))
+    assert readings["device_ops_per_call"] == 1, (shape, readings)
+    return dict(
+        shape=shape, max_abs_err=_max_abs_err(got, want), **readings,
+        plain_ms=_median_ms(lambda: validate_sequence_plain(*args)),
+        bound=_bound(nbytes, ops), floor_ms=_bound(floor, ops)[0], library_ms=None,
+    )
+
+
+def _validate_stale_scratch(rng, dev):
+    """Writers on rows 0..63, then on the same stream rounds that read those
+    rows with no writer, at a smaller and then a larger cap: each equal to
+    the plain version, so no call read an earlier call's first writers."""
+    n_txn, k = 1 << 12, 4
+    lanes = n_txn * k
+    a_len = torch.full((n_txn,), k, dtype=torch.int32, device=dev)
+    for cap, writes in ((1 << 20, True), (1 << 16, False), (1 << 21, False)):
+        acc = np.zeros((6, lanes), np.int32)
+        acc[0] = rng.integers(0, 64, lanes)
+        acc[1] = (np.arange(lanes) if writes else np.full(lanes, 1 << 30)).astype(np.int32)
+        acc[2] = writes
+        acc[3] = -1
+        acc[4] = rng.integers(0, 1 << 20, lanes)
+        args = (torch.from_numpy(acc).to(dev), a_len, n_txn, k, cap)
+        got = validate_sequence(*args)
+        torch.cuda.synchronize()
+        want = validate_sequence_plain(*args)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+            f"validate_sequence at cap={cap} after other calls != plain"
+        assert writes or bool(got[0].all()), f"a stale first writer at cap={cap}"
 
 
 def _scatter_inputs(rng, dev, s=1 << 19, w=1 << 18):
@@ -317,19 +368,14 @@ def check_kernels(seed: int):
     rng = np.random.default_rng(seed)
     results = []
 
-    args, nbytes, ops, shape = _validate_inputs(rng, dev)
-    got = validate_sequence(*args)
-    torch.cuda.synchronize()
-    want = validate_sequence_plain(*args)
-    assert all(torch.equal(g, w) for g, w in zip(got, want)), "validate_sequence != plain"
-    assert bool(got[0].any()) and not bool(got[0].all()), "degenerate survive mask"
+    main = _validate_case(rng, dev)
+    write_only = _validate_case(rng, dev, write_only=True)
+    _validate_stale_scratch(rng, dev)
     results.append(dict(
-        name="validate_sequence", shape=shape, max_abs_err=_max_abs_err(got, want),
-        **_launch_readings(lambda: validate_sequence(*args)),
-        plain_ms=_median_ms(lambda: validate_sequence_plain(*args)),
-        bound=_bound(nbytes, ops), library_ms=None,
+        name="validate_sequence", **main,
         source="src/repro_torch/kernels/csrc/validate_sequence.cu",
         replaces="src/repro/kernels/batch_occ.py:83",
+        write_only=write_only,
     ))
 
     args, nbytes, ops, shape = _scatter_inputs(rng, dev)
@@ -988,7 +1034,8 @@ def main(argv=None) -> int:
 
     kernels = check_kernels(args.seed)
     for k in kernels:
-        for tag, r in (("", k), (" scan form", k.get("scan_form")),
+        for tag, r in (("", k), (" write-only", k.get("write_only")),
+                       (" scan form", k.get("scan_form")),
                        (" large slots", k.get("large_slots"))):
             if r is None:
                 continue
@@ -996,7 +1043,9 @@ def main(argv=None) -> int:
             print(f"kernel {k['name']}{tag} ({r['shape']}): exact; {r['ms']:.4f} ms "
                   f"(device {r['device_ms']} ms, {r['device_ops_per_call']} device ops and "
                   f"{r['host_us_per_call']:.2f} host us per call){plain}, bound "
-                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), library {r['library_ms']} ms | {smi}")
+                  f"{r['bound'][0]:.4f} ms ({r['bound'][1]})"
+                  + (f", design floor {r['floor_ms']:.4f} ms" if "floor_ms" in r else "")
+                  + f", library {r['library_ms']} ms | {smi}")
     llm_cases = check_llm_kernels(args.seed)
     for k in llm_cases:
         print(f"kernel {k['name']} ({k['shape']}): max abs err {k['max_abs_err']:.3g} "
@@ -1064,8 +1113,11 @@ def main(argv=None) -> int:
             "library_ms": k["library_ms"], "shape": k["shape"],
             "device_ms": k["device_ms"],
         })
-        extra = ("device_ops_per_call", "host_us_per_call", "scan_form", "large_slots")
-        line[-1].update({key: k[key] for key in extra if key in k})
+        extra = ("device_ops_per_call", "host_us_per_call", "write_only", "scan_form", "large_slots")
+        # the design floor is computed, not measured: printed above, kept out of this line
+        line[-1].update({key: ({f: v for f, v in k[key].items() if f != "floor_ms"}
+                               if isinstance(k[key], dict) else k[key])
+                         for key in extra if key in k})
     print(json.dumps({"kernels": line}, default=float))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

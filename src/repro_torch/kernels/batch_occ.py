@@ -12,7 +12,9 @@ plain PyTorch version beside it:
 * :func:`validate_sequence` — one round's first-writer min, the three
   validation masks, the survive reduction and the base-SSN max over one
   stacked ``(6, n_txn*k)`` int32 block.  Kernel:
-  ``csrc/validate_sequence.cu``.
+  ``csrc/validate_sequence.cu``, one cooperative launch (first-writer
+  atomics, grid-wide barrier, per-transaction reductions) over a cached,
+  epoch-tagged first-writer scratch that no call fills.
 
 Sentinels: padded items use ``key = -1``, which matches no slot; empty slots
 come back as ``SEG_MAX_INIT`` (-1) for ``op="max"`` and ``NO_WRITER``
@@ -26,7 +28,7 @@ for a CUDA tensor; any other device raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +39,15 @@ SEG_MAX_INIT = np.int32(-1)
 NO_WRITER = np.int32(np.iinfo(np.int32).max)
 
 _I32 = torch.int32
+
+#: ``validate_sequence``'s first-writer scratch per (device index, raw
+#: stream): ``[words, epoch]``, int64 words grown to the largest cap seen and
+#: the epoch of the last call on them.  A word holds its writer's epoch in
+#: its high half, so every call raises the epoch and leaves earlier calls'
+#: words unread; the words are zeroed again only when the 32-bit epoch would
+#: wrap.  Keyed by stream, so that no two streams share one.
+_fw_scratch: Dict[Tuple[int, int], List] = {}
+_EPOCH_MAX = 2**32 - 1
 
 
 def _check_i32(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -137,6 +148,12 @@ def validate_sequence(
     masked: they pass validation vacuously, contribute ``0`` to the base-SSN
     max, and never claim a first-writer slot.  Returns ``(survive, bases)``,
     bool and int32, both ``(n_txn,)``.
+
+    On the card the first-writer table is tagged with an epoch that this
+    function raises on the host before each launch (``_fw_scratch``).  A
+    CUDA graph would replay its captured epoch, read earlier replays' words
+    as this round's first writers and return a wrong ``survive``, so a call
+    under stream capture raises ``RuntimeError``.
     """
     dev = _check_i32("validate_sequence", acc, a_len)
     if tuple(acc.shape) != (6, n_txn * k) or tuple(a_len.shape) != (n_txn,):
@@ -146,13 +163,31 @@ def validate_sequence(
         )
     if dev.type == "cpu":
         return validate_sequence_plain(acc, a_len, n_txn, k, cap)
-    fw = acc.new_empty(cap)
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "validate_sequence: cannot be captured in a CUDA graph (its first-writer "
+            "epoch is raised on the host per call, and a replay would reuse it)"
+        )
+    index = dev.index
+    stream = cuda.current_stream(index)
+    slot = (index, stream)
+    scratch = _fw_scratch.get(slot)
+    if scratch is None or scratch[0].shape[0] < cap:
+        scratch = _fw_scratch[slot] = [acc.new_zeros(max(cap, 1), dtype=torch.int64), 0]
+    elif scratch[1] == _EPOCH_MAX:
+        scratch[0].zero_()
+        scratch[1] = 0
+    scratch[1] += 1
+    # two allocations: one block with a bool view into it costs more host
+    # time than both (tools/launch_variants.py)
     survive = acc.new_empty(n_txn, dtype=torch.bool)
     bases = acc.new_empty(n_txn)
     err = cuda.lib().repro_validate_sequence(
-        acc.data_ptr(), a_len.data_ptr(), n_txn, k, cap, fw.data_ptr(),
-        survive.data_ptr(), bases.data_ptr(), dev.index, cuda.current_stream(dev.index),
+        acc.data_ptr(), a_len.data_ptr(), n_txn, k, cap, scratch[0].data_ptr(), scratch[1],
+        survive.data_ptr(), bases.data_ptr(), index, stream,
     )
-    cuda.check(err, "validate_sequence")
+    if err != 0:
+        _fw_scratch.pop(slot, None)   # the next call starts on fresh words
+        cuda.check(err, "validate_sequence")
     cuda.LAUNCHES["validate_sequence"] += 1
     return survive, bases

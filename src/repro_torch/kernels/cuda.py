@@ -145,7 +145,7 @@ def lib() -> ctypes.CDLL:
             dll.repro_seg_reduce.restype = i
             dll.repro_ssn_scatter_max.argtypes = [p, p, ll, p, p, p, ll, p, p, i, p]
             dll.repro_ssn_scatter_max.restype = i
-            dll.repro_validate_sequence.argtypes = [p, p, ll, i, i, p, p, p, i, p]
+            dll.repro_validate_sequence.argtypes = [p, p, ll, i, i, p, ctypes.c_uint, p, p, i, p]
             dll.repro_validate_sequence.restype = i
             meta = ctypes.POINTER(ll)
             f = ctypes.c_float

@@ -22,7 +22,12 @@ from repro_torch.db import ycsb
 from repro_torch.kernels import cuda
 from repro_torch.kernels import ops
 from repro_torch.kernels import scatter_max as smx
-from repro_torch.kernels.batch_occ import seg_reduce, seg_reduce_plain, validate_sequence_plain
+from repro_torch.kernels.batch_occ import (
+    seg_reduce,
+    seg_reduce_plain,
+    validate_sequence,
+    validate_sequence_plain,
+)
 from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
 from repro_torch.kernels.ref import scatter_max_ref, seg_reduce_ref
 from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
@@ -183,10 +188,30 @@ def _ops_per_call(fn, calls=10, per_call=1):
     return n / calls
 
 
+def _validate_arrays(rng, n_txn, k, cap, edge_pos=False):
+    lanes = n_txn * k
+    acc = np.empty((6, lanes), np.int32)
+    acc[0] = rng.integers(0, cap, lanes)
+    acc[1] = np.repeat(np.arange(n_txn), k)
+    if edge_pos:    # the int32 extremes, -1 and other negatives, on few rows
+        acc[0] = rng.integers(0, min(cap, 64), lanes)
+        acc[1] = rng.choice(np.array([-2**31, -2**31 + 1, -7, -1, 0, 1, 5, 2**31 - 2, 2**31 - 1]),
+                            lanes)
+    acc[2] = rng.integers(0, 2, lanes)
+    ssn = rng.integers(0, 40, lanes).astype(np.int32)
+    acc[3] = np.where(rng.random(lanes) < 0.3, ssn + (rng.random(lanes) < 0.2), -1)
+    acc[4] = ssn
+    acc[5] = rng.random(lanes) < 0.05
+    a_len = rng.integers(1, k + 1, n_txn).astype(np.int32)
+    a_len[-max(1, n_txn // 8):] = 0
+    return acc, a_len
+
+
 def test_one_device_operation_per_call(cuda_device):
     """Under the profiler: one device operation per call for the scatter
-    (with an image, and in the no-image scan form) and for the segmented
-    reduce, min and max."""
+    (with an image, and in the no-image scan form), for the segmented
+    reduce, min and max, and for the fused round, at a power-of-two k and
+    in its warp-per-transaction form."""
     arrs = _scatter_arrays(np.random.default_rng(9), 1 << 16, 1 << 15)
     args = [_t(a, cuda_device) for a in arrs]
     scan = torch.stack(args[2:])
@@ -196,22 +221,25 @@ def test_one_device_operation_per_call(cuda_device):
     assert _ops_per_call(lambda: ops.fused_replay_scan(scan, n_slots=1 << 16)) == 1
     for op in ("max", "min"):
         assert _ops_per_call(lambda: seg_reduce(key, val, 1 << 14, op=op)) == 1
+    for n_txn, k in ((1 << 12, 16), (1 << 10, 11)):
+        acc, a_len = _validate_arrays(np.random.default_rng(k), n_txn, k, 1 << 14)
+        a, n = _t(acc, cuda_device), _t(a_len, cuda_device)
+        assert _ops_per_call(lambda: validate_sequence(a, n, n_txn, k, 1 << 14)) == 1
 
 
-@pytest.mark.parametrize("n_txn,k,cap", [(1 << 12, 16, 1 << 14), (8, 1, 64), (64, 4, 32)])
-def test_validate_sequence_kernel_equals_plain(cuda_device, n_txn, k, cap):
-    rng = np.random.default_rng(n_txn * k)
-    lanes = n_txn * k
-    acc = np.empty((6, lanes), np.int32)
-    acc[0] = rng.integers(0, cap, lanes)
-    acc[1] = np.repeat(np.arange(n_txn), k)
-    acc[2] = rng.integers(0, 2, lanes)
-    ssn = rng.integers(0, 40, lanes).astype(np.int32)
-    acc[3] = np.where(rng.random(lanes) < 0.3, ssn + (rng.random(lanes) < 0.2), -1)
-    acc[4] = ssn
-    acc[5] = rng.random(lanes) < 0.05
-    a_len = rng.integers(1, k + 1, n_txn).astype(np.int32)
-    a_len[-max(1, n_txn // 8):] = 0
+@pytest.mark.parametrize("n_txn,k,cap,edge_pos", [
+    (1 << 12, 16, 1 << 14, False),
+    (8, 1, 64, False),
+    (64, 4, 32, False),
+    (1 << 16, 1, 1 << 20, False),   # the write-only round's shape
+    (1 << 10, 64, 1 << 12, False),  # k > 32: one warp per transaction
+    (1 << 10, 11, 1 << 12, False),  # k not a power of two: the same form
+    (1 << 10, 16, 1 << 12, True),
+    (1 << 10, 1, 1 << 12, True),
+    (1 << 8, 11, 1 << 12, True),
+])
+def test_validate_sequence_kernel_equals_plain(cuda_device, n_txn, k, cap, edge_pos):
+    acc, a_len = _validate_arrays(np.random.default_rng(n_txn * k), n_txn, k, cap, edge_pos)
     a, n = _t(acc, cuda_device), _t(a_len, cuda_device)
     got = ops.fused_validate_sequence(a, n, n_txn=n_txn, k=k, cap=cap)
     torch.cuda.synchronize()
@@ -219,6 +247,66 @@ def test_validate_sequence_kernel_equals_plain(cuda_device, n_txn, k, cap):
     assert got[0].dtype == torch.bool and got[1].dtype == torch.int32
     for g, wnt in zip(got, want):
         assert torch.equal(g, wnt)
+
+
+def test_validate_sequence_scratch_does_not_leak(cuda_device):
+    """Rounds with writers on rows 0..63, then on the same stream rounds
+    that read those rows with no writer, at a smaller and a larger cap and
+    across the epoch's wrap: each equals the plain version, so no call reads
+    an earlier call's first writers."""
+    from repro_torch.kernels import batch_occ
+
+    rng = np.random.default_rng(20)
+    n_txn, k = 1 << 10, 4
+    lanes = n_txn * k
+    a_len = _t(np.full(n_txn, k), cuda_device)
+    index = torch.cuda.current_device()
+    slot = (index, cuda.current_stream(index))
+
+    def round_(cap, writes):
+        acc = np.zeros((6, lanes), np.int32)
+        acc[0] = rng.integers(0, 64, lanes)
+        acc[1] = np.arange(lanes) if writes else np.full(lanes, 1 << 30)
+        acc[2] = writes
+        acc[3] = -1
+        acc[4] = rng.integers(0, 1 << 20, lanes)
+        a = _t(acc, cuda_device)
+        got = validate_sequence(a, a_len, n_txn, k, cap)
+        torch.cuda.synchronize()
+        want = validate_sequence_plain(a, a_len, n_txn, k, cap)
+        for g, wnt in zip(got, want):
+            assert torch.equal(g, wnt), (cap, writes)
+        assert writes or bool(got[0].all()), (cap, "a stale first writer")
+
+    for cap in (1 << 10, 1 << 16):      # smaller, then larger (the scratch grows)
+        round_(1 << 14, True)
+        round_(cap, False)
+    batch_occ._fw_scratch[slot][1] = batch_occ._EPOCH_MAX - 1
+    for writes in (True, True, False, True, False):    # the epoch wraps on the second call
+        round_(1 << 12, writes)
+    assert batch_occ._fw_scratch[slot][1] == 4
+
+
+def test_validate_sequence_refuses_graph_capture(cuda_device):
+    """A captured launch would replay a stale epoch, so capture raises and
+    the call after it on the same stream still equals the plain version."""
+    n_txn, k, cap = 256, 4, 1 << 10
+    acc = np.zeros((6, n_txn * k), np.int32)
+    acc[0] = np.arange(n_txn * k) % 64
+    acc[1] = np.arange(n_txn * k)
+    acc[2] = 1
+    acc[3] = -1
+    a, a_len = _t(acc, cuda_device), _t(np.full(n_txn, k), cuda_device)
+    validate_sequence(a, a_len, n_txn, k, cap)         # the scratch exists before capture
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            with torch.cuda.graph(graph, stream=stream):
+                validate_sequence(a, a_len, n_txn, k, cap)
+    got = validate_sequence(a, a_len, n_txn, k, cap)
+    want = validate_sequence_plain(a, a_len, n_txn, k, cap)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_kernel_mode_end_to_end_on_the_card(cuda_device, tmp_path):

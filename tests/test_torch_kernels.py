@@ -192,6 +192,8 @@ def test_seg_reduce_empty_items(op, init):
     (64, 4, 128, 0.2),      # ragged a_len, locked tuples
     (128, 2, 64, 0.0),      # conflict-heavy: cap << lanes
     (32, 16, 512, 0.1),     # hybrid-shaped: 16 lanes per txn
+    (16, 64, 256, 0.1),     # k > 32: the kernel's warp-per-transaction form
+    (32, 3, 64, 0.1),       # k not a power of two: the same form
 ])
 def test_validate_sequence_matches_reference(n_txn, k, cap, lock_frac):
     acc, a_len = _validate_case(n_txn, k, cap, lock_frac, seed=n_txn * 31 + k)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the kept ``ssn_scatter_max`` and ``seg_reduce`` kernels beside the
-designs the port measured and did not keep (``tools/launch_variants.cu``).
+"""Time the kept ``ssn_scatter_max``, ``seg_reduce`` and ``validate_sequence``
+kernels beside the designs the port measured and did not keep
+(``tools/launch_variants.cu``).
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``:
 
@@ -10,9 +11,10 @@ Every variant is first held against the plain PyTorch version (exact), then
 timed under the CUDA profiler: device microseconds and device operations
 per call, over 50 calls after a warm-up.  Shapes are those of
 ``chip_smoke.py``: the scatter at S = 2^19 slots and W = 2^18 lanes against
-a checkpoint image, the segmented max at 2^16 items over 2^14 slots.  The
-last line is one JSON object with every reading and the card's name and
-power limit.
+a checkpoint image, the segmented max at 2^16 items over 2^14 slots, the
+fused OCC round at the hybrid batch's (6, 2^20) lanes (k = 16) and the
+write-only batch's (6, 2^16) (k = 1), both at cap 2^20.  The last line is
+one JSON object with every reading and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -30,7 +32,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.kernels import cuda as kcuda  # noqa: E402
-from repro_torch.kernels.batch_occ import seg_reduce, seg_reduce_plain  # noqa: E402
+from repro_torch.kernels.batch_occ import (  # noqa: E402
+    seg_reduce,
+    seg_reduce_plain,
+    validate_sequence,
+    validate_sequence_plain,
+)
 from repro_torch.kernels.scatter_max import (  # noqa: E402
     NO_POS,
     ssn_scatter_max,
@@ -44,6 +51,12 @@ class Scatter(ctypes.Structure):
         ("s", ctypes.c_longlong), ("w", ctypes.c_longlong)]
 
 
+class Validate(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in ("acc", "a_len", "fw", "survive", "bases")] + [
+        ("n_txn", ctypes.c_longlong), ("n_lanes", ctypes.c_longlong), ("k", ctypes.c_int),
+        ("kshift", ctypes.c_int), ("cap", ctypes.c_int), ("epoch", ctypes.c_uint)]
+
+
 def _build() -> ctypes.CDLL:
     out_dir = os.path.join(ROOT, "build", "launch_variants")
     os.makedirs(out_dir, exist_ok=True)
@@ -55,7 +68,30 @@ def _build() -> ctypes.CDLL:
     lib.variant_scatter.argtypes = [i, ctypes.POINTER(Scatter), p]
     lib.variant_seg.argtypes = [i, p, p, ll, p, i, p]
     lib.variant_empty.argtypes = [i, p]
+    lib.variant_validate.argtypes = [i, ctypes.POINTER(Validate), p]
     return lib
+
+
+def _round_inputs(rng, write_only: bool):
+    """The fused round of ``chip_smoke.py``'s hybrid batch (65,536 txns x
+    16 lanes, 11 valid, one write) or write-only batch (65,536 txns of one
+    write lane), rows over 1,000,000 tuples, cap 2^20, on the card."""
+    n_txn, k, cap = 1 << 16, (1 if write_only else 16), 1 << 20
+    lanes = n_txn * k
+    lane = np.tile(np.arange(k), n_txn)
+    acc = np.empty((6, lanes), np.int32)
+    acc[0] = rng.integers(0, 1_000_000, lanes)
+    acc[1] = np.repeat(np.arange(n_txn), k)
+    acc[2] = lane == (0 if write_only else 10)
+    acc[4] = rng.integers(0, 1 << 20, lanes)
+    seen = rng.random(lanes) < 0.05
+    acc[3] = np.where(seen, acc[4] + (rng.random(lanes) < 0.3), -1)
+    acc[5] = rng.random(lanes) < 0.01
+    a_len = np.full(n_txn, k if write_only else 11, np.int32)
+    if not write_only:
+        a_len[-1000:] = 0
+    dev = torch.device("cuda")
+    return torch.from_numpy(acc).to(dev), torch.from_numpy(a_len).to(dev), n_txn, k, cap
 
 
 def _per_call(fn, calls: int = 50, tries: int = 3):
@@ -117,6 +153,36 @@ def _host_path(lib, stream, calls: int = 200):
         "whole ssn_scatter_max": lambda: ssn_scatter_max(*args),
         "whole seg_reduce": lambda: seg_reduce(key, val, 1 << 14),
         "library scatter_reduce_": lambda: lib_out.scatter_reduce_(0, idx, packed, "amax", include_self=True),
+    }
+    result = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        result[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        print(f"host {name}: {result[name]:.2f} us per call")
+    return result
+
+
+def _validate_host_path(calls: int = 200):
+    """Host microseconds per call of ``validate_sequence`` at the hybrid
+    round's shape, of its stream-capture check, and of its two output
+    allocations beside one int32 block with two views into it, each
+    repeated ``calls`` times with no synchronisation."""
+    import time
+
+    acc, a_len, n_txn, k, cap = _round_inputs(np.random.default_rng(1), False)
+    steps = {
+        "validate: stream-capture check": torch.cuda.is_current_stream_capturing,
+        "validate: two outputs (kept: bool, int32)": lambda: (
+            acc.new_empty(n_txn, dtype=torch.bool), acc.new_empty(n_txn)),
+        "validate: one int32 block and its two views": lambda: (
+            lambda o: (o[:n_txn], o[n_txn:].view(torch.bool)[:n_txn]))(
+                acc.new_empty(n_txn + (n_txn + 3) // 4)),
+        "validate: whole validate_sequence": lambda: validate_sequence(acc, a_len, n_txn, k, cap),
     }
     result = {}
     for name, fn in steps.items():
@@ -202,7 +268,37 @@ def main() -> int:
         us, ops = _per_call(lambda: lib.variant_empty(variant, stream()))
         rows[name] = dict(device_us=us, ops_per_call=ops)
         print(f"{name}: {us:.2f} device us | {smi}")
+    for write_only in (False, True):
+        acc, a_len, n_txn, k, cap = _round_inputs(rng, write_only)
+        tag = "write-only" if write_only else "hybrid"
+        want = validate_sequence_plain(acc, a_len, n_txn, k, cap)
+        record(f"validate_sequence {tag} (kept: one launch, epoch-tagged scratch)",
+               validate_sequence(acc, a_len, n_txn, k, cap), want,
+               lambda: validate_sequence(acc, a_len, n_txn, k, cap))
+        out = torch.empty(n_txn * 2, dtype=torch.int32, device=dev)
+        got = (out[n_txn:].view(torch.bool)[:n_txn], out[:n_txn])
+        for variant, name in ((3, "validate_three (first port: fill, first writer, one thread per transaction)"),
+                              (0, "validate_fill (cleared int32 table, two barriers)"),
+                              (1, "validate_txn (phase B at one thread per transaction)"),
+                              (2, "validate_regs (lanes held in registers across the barrier)")):
+            table = torch.zeros(cap, dtype=torch.int64, device=dev)   # its own epochs
+            a = Validate(acc.data_ptr(), a_len.data_ptr(), table.data_ptr(),
+                         got[0].data_ptr(), got[1].data_ptr(), n_txn, n_txn * k, k,
+                         k.bit_length() - 1, cap, 0)
+
+            def call(variant=variant, a=a):
+                a.epoch += 1
+                return lib.variant_validate(variant, ctypes.byref(a), stream())
+
+            out.zero_()
+            assert call() == 0, name
+            torch.cuda.synchronize()
+            record(f"{name} {tag}", got, want, call)
+        # again after the variants: the first kernel timed in a row may pay for the order
+        record(f"validate_sequence {tag} (kept, again)", validate_sequence(acc, a_len, n_txn, k, cap),
+               want, lambda: validate_sequence(acc, a_len, n_txn, k, cap))
     host = _host_path(lib, stream)
+    host.update(_validate_host_path())
     print(json.dumps({"card": smi, "variants": rows, "host_us": host}))
     return 0
 
