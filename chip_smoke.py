@@ -40,6 +40,22 @@ together), and then:
 4. recovers with ``recover(mode="kernel")`` and holds it equal to the
    vectorized and scalar modes and to every drained write, and replays the
    logs against the checkpoint through ``replay_columnar(use_kernel=True)``;
+4a. runs TPC-C (paper §6.2, 20 warehouses, 66,220 rows) on the paper's
+   Figure 5 engines (CENTR, SILO, NVM-D and Poplar), each with four
+   ``OCCWorker`` threads, quiesced, killed and recovered in three modes,
+   then Poplar batched through ``BatchOCC(mode="kernel")`` (8 batches of
+   8,192 specs, the last not drained), killed and recovered; prints one
+   ``tpcc_path`` JSON line;
+4b. runs 4 shards over the main path's 1,000,000-row table (write-only
+   batches of 65,536, 10% cross-shard) with a checkpoint of every row
+   after the load, a ``ShardedReplica`` that starts from it and tails the
+   logs on its own thread, a second checkpoint, one
+   ``ShardedLogTruncator`` pass and a kill with a torn frame; holds
+   ``recover_sharded`` in three modes equal, reads back every loaded row
+   and every drained write, holds ``promote()`` equal to it and the
+   scatter's scratch all zero; prints one ``sharded_path`` JSON line;
+   on paths 3, 4a and 4b every fused OCC round's ``validate_sequence``
+   is held against its plain version on the round's own inputs;
 5. drives the LLM serve path for ``hymba-1.5b`` and then ``rwkv6-7b``, each
    at full width and depth in bfloat16 with seeded random weights: one
    ``ServeEngine`` (cache 4096) answering a warm-up and a timed request of
@@ -62,13 +78,16 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
+import random
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
@@ -77,7 +96,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import EngineConfig, PoplarEngine, Txn, make_devices, recover
+from repro_torch.core import (
+    CentrEngine,
+    EngineConfig,
+    NvmDEngine,
+    PoplarEngine,
+    ShardedLogTruncator,
+    SiloEngine,
+    Txn,
+    make_devices,
+    recover,
+)
+from repro_torch.core.truncate import FrontierRegistry
 from repro_torch.core.checkpoint import CheckpointDaemon, load_latest_checkpoint
 from repro_torch.core.recovery import (
     compute_rsne,
@@ -85,8 +115,8 @@ from repro_torch.core.recovery import (
     load_columnar_segmented,
     replay_columnar,
 )
-from repro_torch.db import ArrayTable, BatchOCC
-from repro_torch.db import ycsb
+from repro_torch.db import ArrayTable, BatchOCC, OCCWorker, Table, TxnSpec
+from repro_torch.db import tpcc, ycsb
 from repro_torch.kernels import cuda as kcuda
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.batch_occ import (
@@ -104,6 +134,8 @@ from repro_torch.configs.registry import get_config
 from repro_torch.models.api import build_model
 from repro_torch.models.serve_llm import ServeEngine
 from repro_torch.obs import metrics
+from repro_torch.replica import ShardedReplica
+from repro_torch.shard import ShardedConfig, ShardedEngine, recover_sharded
 from repro_torch.trace import span as tspan
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3.  int32 ALU rate: the data
@@ -125,6 +157,25 @@ TORN_VALUE = b"TORN-VALUE-NEVER-COMMITTED"
 DECLINES = ("occ.fused.decline.small_batch", "occ.fused.decline.dense_padding",
             "occ.fused.decline.i32_range")
 OLTP_KERNELS = ("validate_sequence", "ssn_scatter_max", "seg_reduce")
+# TPC-C, paper §6.2: 20 warehouses at db/tpcc.py's scaled widths (customers
+# 120 of 3,000 per district, items 2,000 of 100,000), 66,220 rows
+TPCC_WAREHOUSES = 20
+TPCC_ENGINES = ("centr", "silo", "nvmd", "poplar")
+TPCC_WORKERS = 4
+TPCC_TXNS_PER_WORKER = 2_000     # OCCWorker attempts per thread and engine
+TPCC_BATCH = 8_192               # BatchOCC specs per batch
+TPCC_BATCHES = 8
+# sharded Poplar on one card: 4 shards (host partitions of one engine), the
+# main path's YCSB table, write-only batches with 10% cross-shard
+# transactions (two 500-B writes on two shards instead of one 1000-B write)
+SHARDS = 4
+SHARD_BUFFERS = 2                # path-backed SSD devices per shard
+SHARD_ROWS = N_ROWS
+SHARD_BATCHES = 6
+SHARD_CROSS = 0.1
+SHARD_VALUE = 1000
+SHARD_SEGMENT_BYTES = 8 << 20    # small enough that whole sealed segments drop
+SMOKE_LIMIT_S = 1200             # the whole run's limit, the kernels' build included
 LLM_KERNELS = ("flash_attention", "ssm_scan_chunked", "rwkv6_chunked")
 # the LLM serve paths, each with the kernels its prefill launches once per
 # layer: hymba-1.5b at full width (32 layers, d_model 1600, 25 query / 5 KV
@@ -663,6 +714,105 @@ def _torn_record() -> bytes:
     return t.encode()[:-7]
 
 
+class _CheckedRounds:
+    """Holds every fused round that a path runs against the plain version.
+
+    While entered, ``kops.fused_validate_sequence`` (which ``BatchOCC``'s
+    fused round looks up at each call) keeps each round's inputs and the
+    kernel's ``(survive, bases)``.  :meth:`check`, called outside the timed
+    region, recomputes them with ``validate_sequence_plain`` on the same
+    inputs, which launches no kernel, and asserts equality.  ``rounds``
+    counts the rounds checked per access bucket ``k``: above k = 32 the
+    kernel runs its warp-per-transaction form."""
+
+    def __init__(self, what: str):
+        self.what, self.pending, self.rounds = what, [], {}
+
+    def __enter__(self):
+        orig = self._orig = kops.fused_validate_sequence
+
+        @functools.wraps(orig)
+        def checked(acc, a_len, *, n_txn, k, cap):
+            survive, bases = orig(acc, a_len, n_txn=n_txn, k=k, cap=cap)
+            self.pending.append((acc, a_len, n_txn, k, cap, survive, bases))
+            return survive, bases
+
+        kops.fused_validate_sequence = checked
+        return self
+
+    def __exit__(self, *exc):
+        kops.fused_validate_sequence = self._orig
+        self.pending.clear()
+
+    def check(self):
+        for acc, a_len, n_txn, k, cap, survive, bases in self.pending:
+            want_survive, want_bases = validate_sequence_plain(acc, a_len, n_txn, k, cap)
+            assert torch.equal(survive, want_survive) and torch.equal(bases, want_bases), \
+                f"{self.what}: validate_sequence != plain at n_txn={n_txn}, k={k}, cap={cap}"
+            self.rounds[k] = self.rounds.get(k, 0) + 1
+        self.pending.clear()
+
+
+def _expect_write(expect, kb, v, s):
+    """Note a drained write: per key its newest SSN and the values drained at
+    that SSN (SILO's transactions of one epoch share one)."""
+    cur = expect.get(kb)
+    if cur is None or s > cur[0]:
+        expect[kb] = (s, {v})
+    elif s == cur[0]:
+        cur[1].add(v)
+
+
+def _read_back(data, expect, what: str) -> int:
+    """Every expected key recovered at its newest drained SSN or later, at
+    that SSN with one of the values drained with it; no torn value.  Returns
+    the number of keys checked."""
+    assert all(v != TORN_VALUE for v, _ in data.values()), what
+    for kb, (s, vals) in expect.items():
+        got = data.get(kb)
+        assert got is not None and got[1] >= s, (what, kb, s, got)
+        if got[1] == s:
+            assert got[0] in vals, (what, kb)
+    return len(expect)
+
+
+def _checkpoint(table, ckdir: str, csn_fn, epoch: int) -> int:
+    """A fuzzy checkpoint of every row of ``table`` in two files; returns the
+    row count."""
+    n, keys, vals, ssns = table.n, table._keys_b, table.values, table.ssn
+    parts = [((keys[r], vals[r], int(ssns[r])) for r in range(lo, hi))
+             for lo, hi in ((0, n // 2), (n // 2, n))]
+    CheckpointDaemon(ckdir, n_threads=2, m_files=2, csn_fn=csn_fn).run_once(parts, epoch=epoch)
+    return n
+
+
+def _state_view(st):
+    return st.data, st.rsns, st.rsne, st.n_replayed, st.n_skipped_uncommitted
+
+
+def _recover_modes(recover_fn, view, what: str, smi: str = ""):
+    """``recover_fn(mode, **kw)`` in kernel (on the card), vectorized and
+    scalar modes: the kernel mode must launch the scatter, and every mode
+    must give the kernel mode's ``view`` of the state.  Returns seconds and
+    launches per mode, and the kernel mode's state."""
+    rec, views = {}, {}
+    for mode in ("kernel", "vectorized", "scalar"):
+        launches0 = dict(kcuda.LAUNCHES)
+        t1 = time.perf_counter()
+        st = recover_fn(mode, **({"device": "cuda"} if mode == "kernel" else {}))
+        rec[mode] = dict(seconds=time.perf_counter() - t1,
+                         launches=_delta(dict(kcuda.LAUNCHES), launches0))
+        views[mode] = view(st)
+        if mode == "kernel":
+            kernel_state = st
+        print(f"{what}: recover mode={mode}: {rec[mode]['seconds']:.3f} s, launches "
+              f"{rec[mode]['launches']}" + (f" | {smi}" if smi else ""))
+    assert rec["kernel"]["launches"]["ssn_scatter_max"] >= 1, (what, rec["kernel"])
+    for mode in ("vectorized", "scalar"):
+        assert views[mode] == views["kernel"], (what, mode)
+    return rec, kernel_state
+
+
 def run_main_path(workdir, seed=0):
     """Forward path, checkpoint, kill and recovery on the card; returns the
     measurements, with ``out["launches"]``: each kernel's launches over
@@ -695,14 +845,14 @@ def run_main_path(workdir, seed=0):
     occ._fused_round = _logged_fused_round
     wo = ycsb.YCSBWriteOnly(N_ROWS, seed=seed)
     hy = ycsb.YCSBHybrid(N_ROWS, scan_length=10, seed=seed)
-    expect = {}   # key -> (value, ssn) of the newest drained write
+    expect = {}   # key -> (ssn, values) of the newest drained write
+    rounds = _CheckedRounds("main path")
 
     def _record(res, writes_of):
         for t, i in zip(res.committed, res.committed_idx):
             assert t.committed, "a drained transaction is not committed"
             for kb, v in writes_of(t, i):
-                if kb not in expect or t.ssn > expect[kb][1]:
-                    expect[kb] = (v, t.ssn)
+                _expect_write(expect, kb, v, t.ssn)
 
     def _run(kind, n, drain=True, profiled=False):
         launches0, c0 = dict(kcuda.LAUNCHES), _counters(reg)
@@ -734,6 +884,7 @@ def run_main_path(workdir, seed=0):
         else:
             res = execute()
         secs = time.perf_counter() - t1
+        rounds.check()
         trace = tspan.TRACER.dump()
         stages = {tspan.STAGE_NAMES[st]: float(trace.duration()[trace.stage == st].sum())
                   for st in BATCH_STAGES}
@@ -762,42 +913,39 @@ def run_main_path(workdir, seed=0):
 
     kinds = ["write-only", "hybrid"] * (N_BATCHES // 2)
     tspan.enable()
-    for b, kind in enumerate(kinds):
-        if b == N_BATCHES - 1:
-            # a batch under 2048 lanes: the fused round declines every round
-            # and the segmented reduces of _first_writer/_base_ssns take
-            # seg_reduce
-            row = _run("write-only", SMALL_BATCH)
-            assert row["fused_per_round"] == [False] * row["rounds"], row
-            assert row["counters"]["occ.fused.decline.small_batch"] == row["rounds"], row
-            assert row["launches"]["seg_reduce"] >= 2, row
-            # the kill: the last batch is published, not drained
-            row = _run(kind, BATCH, drain=False)
-        else:
-            # the first batch of each kind also runs under the CUDA profiler
-            row = _run(kind, BATCH, profiled=b < 2)
-        # A full-size batch's first round always takes the fused round, and
-        # the fused rounds come first.  Only its retry rounds may decline,
-        # and only for size: the losers they retry can fall under the 2048
-        # lanes below which the reference's rule (BatchOCC.fused_min_lanes)
-        # declines, so decline.small_batch is held to rounds - 1, not to 0.
-        c, per_round = row["counters"], row["fused_per_round"]
-        assert len(per_round) == row["rounds"] and per_round[0], row
-        assert per_round == sorted(per_round, reverse=True), row
-        assert c["occ.fused.rounds"] == sum(per_round), row
-        assert c["occ.fused.decline.dense_padding"] == 0, row
-        assert c["occ.fused.decline.i32_range"] == 0, row
-        assert c["occ.fused.decline.small_batch"] == row["rounds"] - sum(per_round), row
-        if b == 3:
-            t1 = time.perf_counter()
-            ck = CheckpointDaemon(ckdir, n_threads=2, m_files=2,
-                                  csn_fn=lambda: engine.commit.csn)
-            n, keys, vals, ssns = table.n, table._keys_b, table.values, table.ssn
-            parts = [((keys[r], vals[r], int(ssns[r])) for r in range(lo, hi))
-                     for lo, hi in ((0, n // 2), (n // 2, n))]
-            ck.run_once(parts, epoch=1)
-            out["checkpoint_s"] = time.perf_counter() - t1
-            print(f"checkpoint after batch {b}: {n} rows in {out['checkpoint_s']:.3f} s")
+    with rounds:
+        for b, kind in enumerate(kinds):
+            if b == N_BATCHES - 1:
+                # a batch under 2048 lanes: the fused round declines every round
+                # and the segmented reduces of _first_writer/_base_ssns take
+                # seg_reduce
+                row = _run("write-only", SMALL_BATCH)
+                assert row["fused_per_round"] == [False] * row["rounds"], row
+                assert row["counters"]["occ.fused.decline.small_batch"] == row["rounds"], row
+                assert row["launches"]["seg_reduce"] >= 2, row
+                # the kill: the last batch is published, not drained
+                row = _run(kind, BATCH, drain=False)
+            else:
+                # the first batch of each kind also runs under the CUDA profiler
+                row = _run(kind, BATCH, profiled=b < 2)
+            # A full-size batch's first round always takes the fused round, and
+            # the fused rounds come first.  Only its retry rounds may decline,
+            # and only for size: the losers they retry can fall under the 2048
+            # lanes below which the reference's rule (BatchOCC.fused_min_lanes)
+            # declines, so decline.small_batch is held to rounds - 1, not to 0.
+            c, per_round = row["counters"], row["fused_per_round"]
+            assert len(per_round) == row["rounds"] and per_round[0], row
+            assert per_round == sorted(per_round, reverse=True), row
+            assert c["occ.fused.rounds"] == sum(per_round), row
+            assert c["occ.fused.decline.dense_padding"] == 0, row
+            assert c["occ.fused.decline.i32_range"] == 0, row
+            assert c["occ.fused.decline.small_batch"] == row["rounds"] - sum(per_round), row
+            if b == 3:
+                t1 = time.perf_counter()
+                n = _checkpoint(table, ckdir, lambda: engine.commit.csn, epoch=1)
+                out["checkpoint_s"] = time.perf_counter() - t1
+                print(f"checkpoint after batch {b}: {n} rows in {out['checkpoint_s']:.3f} s")
+    out["validate_rounds_checked"] = rounds.rounds
 
     tspan.disable()
     engine.stop()                 # kill: loggers die, the ring's contents are lost
@@ -810,32 +958,11 @@ def run_main_path(workdir, seed=0):
 
     devs = make_devices(4, "ssd", logdir, "virtual")
     assert any(len(d.read_segment_entries()) > 1 for d in devs), "no sealed segment"
-    rec = {}
-    states = {}
-    for mode in ("kernel", "vectorized", "scalar"):
-        launches0 = dict(kcuda.LAUNCHES)
-        t1 = time.perf_counter()
-        kw = {"device": "cuda"} if mode == "kernel" else {}
-        states[mode] = recover(devs, mode=mode, **kw)
-        rec[mode] = dict(seconds=time.perf_counter() - t1,
-                         launches=_delta(dict(kcuda.LAUNCHES), launches0),
-                         fused=states[mode].report.fused)
-        print(f"recover mode={mode}: {rec[mode]['seconds']:.3f} s, "
-              f"launches {rec[mode]['launches']}, fused {rec[mode]['fused']}")
-    st = states["kernel"]
+    rec, st = _recover_modes(lambda mode, **kw: recover(devs, mode=mode, **kw),
+                             _state_view, "main path")
+    rec["kernel"]["fused"] = st.report.fused
     assert st.report.fused is True, "the fused kernel recovery did not engage"
-    assert rec["kernel"]["launches"]["ssn_scatter_max"] >= 1, rec["kernel"]
-    for mode in ("vectorized", "scalar"):
-        o = states[mode]
-        assert (o.data, o.rsns, o.rsne, o.n_replayed, o.n_skipped_uncommitted) == (
-            st.data, st.rsns, st.rsne, st.n_replayed, st.n_skipped_uncommitted), mode
-    assert all(v != TORN_VALUE for v, _ in st.data.values())
-    for kb, (v, s) in expect.items():
-        got = st.data.get(kb)
-        assert got is not None and got[1] >= s, (kb, s, got)
-        if got[1] == s:
-            assert got[0] == v, kb
-    rec["drained_writes_checked"] = len(expect)
+    rec["drained_writes_checked"] = _read_back(st.data, expect, "main path")
     rec["rsne"] = st.rsne
     rec["replayed"] = st.n_replayed
     rec["skipped"] = st.n_skipped_uncommitted
@@ -875,6 +1002,378 @@ def run_main_path(workdir, seed=0):
     for d in devs:
         d.close()
     metrics.disable()
+    return out
+
+
+# --- TPC-C: the paper's four engines and the batched executor ----------------
+
+def _tpcc_engine(name: str, logdir: str):
+    """One of the paper's engines over four path-backed SSDs (CENTR keeps one:
+    its single log is what it is)."""
+    cfg = EngineConfig(n_buffers=4, device_kind="ssd", device_dir=logdir,
+                       device_clock="virtual")
+    if name == "centr":
+        return CentrEngine(cfg)
+    if name == "silo":
+        return SiloEngine(cfg, epoch_interval=50e-3)      # paper §6.1: 50 ms epochs
+    if name == "nvmd":
+        return NvmDEngine(n_workers=TPCC_WORKERS, n_devices=4, device_kind="ssd",
+                          device_dir=logdir, device_clock="virtual")
+    return PoplarEngine(cfg)
+
+
+def _recover_and_read_back(devs, drained, what: str, epoch_ties: bool = False):
+    """``recover`` in three modes (:func:`_recover_modes`), then every drained
+    write read back.  ``drained`` holds ``(key bytes, value, ssn, has_reads)``
+    per write.
+
+    Recovery replays a record with reads only at or below RSNe, the minimum
+    over devices of the newest SSN each holds.  Poplar's heartbeats lift an
+    idle device to the frontier; the baselines have none, so a transaction
+    that SILO or NVM-D committed by its own rule may sit above RSNe and is not
+    replayed (ROADMAP Queue C): those writes are counted apart, not checked.
+
+    ``epoch_ties``: SILO's SSN is its epoch, so writes of one key in one
+    epoch tie, and the scalar mode's parallel replay keeps whichever device's
+    thread came first (ROADMAP Queue C, "SILO's epoch ties"); the scalar
+    oracle then replays the devices in order, as the other modes do.
+    Returns seconds and launches per mode and the counts."""
+    def recover_fn(mode, **kw):
+        return recover(devs, mode=mode, parallel=not (epoch_ties and mode == "scalar"), **kw)
+
+    rec, st = _recover_modes(recover_fn, _state_view, what)
+    expect, above = {}, 0
+    for kb, v, s, has_reads in drained:
+        if has_reads and s > st.rsne:
+            above += 1
+        else:
+            _expect_write(expect, kb, v, s)
+    rec.update(drained_keys_checked=_read_back(st.data, expect, what),
+               drained_writes_above_rsne=above, rsne=st.rsne, records=st.n_replayed,
+               skipped=st.n_skipped_uncommitted)
+    return rec
+
+
+def run_tpcc_path(workdir, seed, smi):
+    """TPC-C (paper §6.2, 50% Payment + 50% NewOrder) on the four engines of
+    the paper's Figure 5, each with four ``OCCWorker`` threads for a fixed
+    number of transactions, then quiesced, killed and recovered on the card;
+    then Poplar batched through ``BatchOCC(mode="kernel")``, killed with the
+    last batch published but not drained, and recovered."""
+    out = {"warehouses": TPCC_WAREHOUSES, "engines": {}}
+    for name in TPCC_ENGINES:
+        logdir = os.path.join(workdir, f"tpcc-{name}")
+        table = Table()
+        tpcc.load(table, TPCC_WAREHOUSES, seed=11 + seed)
+        engine = _tpcc_engine(name, logdir)
+        engine.start()
+        workers = [OCCWorker(table, engine, i) for i in range(TPCC_WORKERS)]
+        done = [[] for _ in workers]
+
+        def loop(i):
+            gen = tpcc.TPCC(table, TPCC_WAREHOUSES, seed=seed * 100 + i)
+            w = workers[i]
+            for _ in range(TPCC_TXNS_PER_WORKER):
+                t = gen.next_txn(w)
+                if t is not None:
+                    done[i].append(t)
+                w.drain()
+
+        threads = [threading.Thread(target=loop, args=(i,)) for i in range(TPCC_WORKERS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        secs = time.perf_counter() - t0
+        engine.quiesce(range(TPCC_WORKERS))
+        engine.stop()                                   # the kill, after the quiesce
+        n_devices = len(engine.devices)
+        for d in engine.devices:
+            d.close()
+        txns = [t for lst in done for t in lst]
+        assert all(t.committed for t in txns), f"{name}: a quiesced txn is not committed"
+        drained = [(k.encode(), v, t.ssn, t.has_reads) for t in txns for k, v in t.write_set]
+        devs = make_devices(n_devices, "ssd", logdir, "virtual")
+        rec = _recover_and_read_back(devs, drained, f"tpcc {name}",
+                                     epoch_ties=name == "silo")
+        if name in ("centr", "poplar"):
+            assert rec["drained_writes_above_rsne"] == 0, (name, rec)
+        for d in devs:
+            d.close()
+        row = dict(committed=len(txns), attempts=TPCC_WORKERS * TPCC_TXNS_PER_WORKER,
+                   aborts=sum(w.aborts for w in workers), seconds=secs,
+                   txn_per_s=len(txns) / secs, devices=n_devices, recovery=rec,
+                   level=engine.level)
+        out["engines"][name] = row
+        print(f"tpcc {name}: {len(txns)} committed of {row['attempts']} ({row['aborts']} "
+              f"aborts), {TPCC_WORKERS} threads, {n_devices} devices, {row['txn_per_s']:.1f} "
+              f"txn/s; recover kernel {rec['kernel']['seconds']:.3f} s, vectorized "
+              f"{rec['vectorized']['seconds']:.3f}, scalar {rec['scalar']['seconds']:.3f}; "
+              f"{rec['drained_keys_checked']} drained keys read back, "
+              f"{rec['drained_writes_above_rsne']} committed writes with reads above RSNe "
+              f"{rec['rsne']} | {smi}")
+
+    # Poplar, batched: next_batch against the columnar table, losers redrawn
+    reg = metrics.enable()
+    logdir = os.path.join(workdir, "tpcc-batched")
+    table = ArrayTable()
+    tpcc.load(table, TPCC_WAREHOUSES, seed=11 + seed)
+    out["rows"] = table.n
+    gen = tpcc.TPCC(table, TPCC_WAREHOUSES, seed=seed)
+    engine = PoplarEngine(EngineConfig(n_buffers=4, device_kind="ssd", device_dir=logdir,
+                                       device_clock="virtual"))
+    engine.start()
+    occ = BatchOCC(table, engine, n_workers=4, mode="kernel", device="cuda")
+    drained, batches = [], []
+    with _CheckedRounds("tpcc batched") as rounds:
+        for b in range(TPCC_BATCHES):
+            specs = gen.next_batch(TPCC_BATCH, lookup=table.get_or_insert)
+            c0 = _counters(reg)
+            t1 = time.perf_counter()
+            res = occ.execute_batch(specs, max_rounds=3)
+            secs = time.perf_counter() - t1
+            rounds.check()
+            last = b == TPCC_BATCHES - 1
+            if not last:                     # the last batch is published, not drained
+                occ.drain()
+                engine.quiesce(range(4))
+                for t in res.committed:
+                    assert t.committed, "a drained transaction is not committed"
+                    drained += [(k.encode(), v, t.ssn, t.has_reads) for k, v in t.write_set]
+            row = dict(txns=TPCC_BATCH, committed=len(res.committed),
+                       aborted=len(res.aborted), rounds=res.rounds, seconds=secs,
+                       txn_per_s=len(res.committed) / secs,
+                       counters=_delta(_counters(reg), c0), drained=not last)
+            batches.append(row)
+            print(f"tpcc batch {b}: {TPCC_BATCH} specs, {row['committed']} committed, "
+                  f"{row['aborted']} aborted in {res.rounds} rounds ("
+                  f"{row['counters']['occ.fused.rounds']} fused; counters {row['counters']}), "
+                  f"{secs:.3f} s, {row['txn_per_s']:.1f} txn/s")
+    # NewOrder's 5-15 lines make 47-62 lanes: k = 64, the warp form
+    assert any(k > 32 for k in rounds.rounds), rounds.rounds
+    print(f"tpcc batched: validate_sequence equal to its plain version on every fused "
+          f"round, rounds per k {rounds.rounds}")
+    metrics.disable()
+    engine.stop()
+    for d in engine.devices:
+        d.close()
+    devs = make_devices(4, "ssd", logdir, "virtual")
+    rec = _recover_and_read_back(devs, drained, "tpcc batched")
+    assert rec["drained_writes_above_rsne"] == 0, rec
+    for d in devs:
+        d.close()
+    out["batched"] = dict(batches=batches, recovery=rec, rows_after=table.n,
+                          validate_rounds_checked=rounds.rounds)
+    print(f"tpcc batched: recover kernel {rec['kernel']['seconds']:.3f} s, vectorized "
+          f"{rec['vectorized']['seconds']:.3f}, scalar {rec['scalar']['seconds']:.3f}; "
+          f"{rec['drained_keys_checked']} drained keys read back | {smi}")
+    return out
+
+
+# --- sharded, truncated and replicated Poplar on one card ---------------------
+
+class _ShardedYCSB:
+    """Write-only YCSB with a fixed cross-shard share (the traffic of
+    ``benchmarks/fig_shard_scalability.py``): a transaction is one
+    ``SHARD_VALUE``-byte write in one shard's key bucket, or, with
+    probability ``SHARD_CROSS``, two half-size writes in two distinct
+    shards' buckets."""
+
+    def __init__(self, buckets, seed):
+        self.buckets = buckets
+        self.rng = np.random.default_rng(seed)
+
+    def next_batch(self, n):
+        rng, nb, half = self.rng, len(self.buckets), SHARD_VALUE // 2
+        blob = rng.bytes(n * SHARD_VALUE)
+        cross = rng.random(n) < SHARD_CROSS
+        s1 = rng.integers(0, nb, n)
+        s2 = (s1 + rng.integers(1, nb, n)) % nb
+        sizes = np.asarray([len(b) for b in self.buckets])
+        k1, k2 = rng.integers(0, sizes[s1]), rng.integers(0, sizes[s2])
+        specs = []
+        for i in range(n):
+            off, a = i * SHARD_VALUE, self.buckets[s1[i]][k1[i]]
+            if cross[i]:
+                specs.append(TxnSpec(writes=[
+                    (a, blob[off:off + half]),
+                    (self.buckets[s2[i]][k2[i]], blob[off + half:off + SHARD_VALUE])]))
+            else:
+                specs.append(TxnSpec(writes=[(a, blob[off:off + SHARD_VALUE])]))
+        return specs
+
+
+def _sharded_view(st):
+    return (st.n_cross_seen, st.n_cross_dropped,
+            [(s.data, s.rsns, s.rsne, s.n_replayed, s.n_skipped_uncommitted)
+             for s in st.shards])
+
+
+def _checkpoint_shards(eng, ckpt_dirs, epoch: int) -> float:
+    """A fuzzy checkpoint of every row of every shard; returns its seconds."""
+    t0 = time.perf_counter()
+    for p, sh in enumerate(eng.shards):
+        _checkpoint(sh.table, ckpt_dirs[p], sh.engine.commit.advance_csn, epoch)
+    return time.perf_counter() - t0
+
+
+def _retained_bytes(eng):
+    return sum(d.disk_bytes() for devs in eng.devices for d in devs)
+
+
+def run_sharded_path(workdir, seed, smi, t_start):
+    """4 shards of one engine on one card: a checkpoint of every shard after
+    the load, from which a ``ShardedReplica`` starts and then follows the logs
+    live; a fuzzy checkpoint of every shard after batch 2, one
+    ``ShardedLogTruncator`` pass after batch 3, and a kill with the last batch
+    published but not drained and a torn frame on shard 0's device 0; then
+    ``recover_sharded`` in three modes and the replica's ``promote()``."""
+    logdir = os.path.join(workdir, "sharded")
+    ckpt_dirs = [os.path.join(workdir, f"sharded-ckpt{p}") for p in range(SHARDS)]
+    eng = ShardedEngine(ShardedConfig(
+        n_shards=SHARDS, n_workers=4, mode="kernel", device="cuda", device_dir=logdir,
+        table_capacity=SHARD_ROWS // SHARDS * 5 // 4,
+        engine=EngineConfig(n_buffers=SHARD_BUFFERS, device_kind="ssd",
+                            device_clock="virtual", segment_bytes=SHARD_SEGMENT_BYTES)))
+    t0 = time.perf_counter()
+    rng = random.Random(seed)
+    buckets = [[] for _ in range(SHARDS)]
+    expect = {}                  # every loaded row, then every drained write
+    for i in range(SHARD_ROWS):
+        k = ycsb.key_of(i)
+        buckets[eng.shard_of(k)].append(k)
+        v = rng.randbytes(SHARD_VALUE)
+        eng.insert(k, v)
+        _expect_write(expect, k.encode(), v, 0)
+    out = {"shards": SHARDS, "rows": SHARD_ROWS, "rows_per_shard": [len(b) for b in buckets],
+           "load_s": time.perf_counter() - t0, "batches": []}
+    wl = _ShardedYCSB(buckets, seed)
+    eng.start()
+    out["base_checkpoint_s"] = _checkpoint_shards(eng, ckpt_dirs, epoch=1)
+    registries = [FrontierRegistry() for _ in range(SHARDS)]
+    t0 = time.perf_counter()
+    rep = ShardedReplica(eng.devices, checkpoint_dirs=ckpt_dirs, mode="kernel",
+                         device="cuda", parallel=False)
+    out["replica_seed_s"] = time.perf_counter() - t0
+    assert sum(len(r.table) for r in rep.replicas) == SHARD_ROWS, "replica not seeded"
+    for p, r in enumerate(rep.replicas):
+        registries[p].register_replica("replica", r)
+    rep.start()
+    print(f"sharded: {SHARD_ROWS} rows loaded in {out['load_s']:.3f} s, checkpointed in "
+          f"{out['base_checkpoint_s']:.3f} s, replica seeded from it in "
+          f"{out['replica_seed_s']:.3f} s")
+
+    def _record(res):
+        for t in res.committed:
+            assert t.committed, "a drained transaction is not committed"
+            for k, v in t.write_set:
+                _expect_write(expect, k.encode(), v, t.ssn)
+        for x in res.cross:
+            assert x.committed, "a drained cross-shard transaction is not committed"
+            for part in x.parts:
+                tab = eng.shards[part.shard].table
+                for r, v in zip(part.wr_rows.tolist(), part.wr_vals):
+                    _expect_write(expect, tab.key_of(r).encode(), v, part.ssn)
+
+    with _CheckedRounds("sharded") as rounds:
+        for b in range(SHARD_BATCHES):
+            specs = wl.next_batch(BATCH)
+            t1 = time.perf_counter()
+            res = eng.execute_batch(specs, max_rounds=3)
+            secs = time.perf_counter() - t1
+            rounds.check()
+            last = b == SHARD_BATCHES - 1
+            if not last:
+                eng.quiesce()
+                _record(res)
+            n_ok = len(res.committed) + len(res.cross)
+            row = dict(txns=BATCH, committed=len(res.committed), cross=len(res.cross),
+                       aborted=len(res.aborted), seconds=secs, txn_per_s=n_ok / secs,
+                       drained=not last)
+            out["batches"].append(row)
+            print(f"sharded batch {b}: {BATCH} txns, {row['committed']} single-shard + "
+                  f"{row['cross']} cross-shard committed, {row['aborted']} aborted, {secs:.3f} s, "
+                  f"{row['txn_per_s']:.1f} txn/s")
+            if b == 1:
+                out["checkpoint_s"] = _checkpoint_shards(eng, ckpt_dirs, epoch=2)
+                print(f"sharded checkpoint after batch {b}: {SHARD_ROWS} rows in "
+                      f"{out['checkpoint_s']:.3f} s")
+            if b == 2:
+                # the replica's frontiers cap the safe point: let it catch up first
+                t1 = time.perf_counter()
+                while rep.lag_bytes() or rep.held():
+                    assert time.perf_counter() - t1 < 120, "replica did not catch up"
+                    time.sleep(0.01)
+                out["replica_catchup_s"] = time.perf_counter() - t1
+                before = _retained_bytes(eng)
+                t1 = time.perf_counter()
+                stats = ShardedLogTruncator(eng, ckpt_dirs, registries=registries).run_once()
+                out["truncation"] = dict(
+                    seconds=time.perf_counter() - t1, retained_before=before,
+                    retained_after=_retained_bytes(eng),
+                    segments_dropped=[s.segments_dropped for s in stats],
+                    bytes_dropped=[s.bytes_dropped for s in stats],
+                    safe_ssn=[s.safe_ssn for s in stats])
+                tr = out["truncation"]
+                assert sum(tr["bytes_dropped"]) > 0, tr
+                assert tr["retained_after"] == before - sum(tr["bytes_dropped"]), tr
+                print(f"sharded truncation after batch {b}: replica caught up in "
+                      f"{out['replica_catchup_s']:.3f} s; retained {before} -> "
+                      f"{tr['retained_after']} bytes, segments dropped {tr['segments_dropped']}, "
+                      f"safe SSNs {tr['safe_ssn']}")
+    out["validate_rounds_checked"] = rounds.rounds
+    elapsed = time.perf_counter() - t_start
+    print(f"sharded path: {elapsed:.1f} s into the smoke before the kill")
+    # the recoveries and both serve paths take under 4 minutes on an H100:
+    # half the limit must be left here
+    assert elapsed < SMOKE_LIMIT_S / 2, f"{elapsed:.0f} s before the kill: cut SHARD_ROWS"
+    eng.stop()                          # the kill: loggers die, rings are lost
+    for devs in eng.devices:
+        for d in devs:
+            d.close()
+    with open(os.path.join(logdir, "shard0", "log_0.bin"), "ab") as f:
+        f.write(_torn_record())
+        f.flush()
+        os.fsync(f.fileno())
+
+    devs = [make_devices(SHARD_BUFFERS, "ssd", os.path.join(logdir, f"shard{p}"), "virtual")
+            for p in range(SHARDS)]
+    rec, st = _recover_modes(
+        lambda mode, **kw: recover_sharded(devs, checkpoint_dirs=ckpt_dirs, mode=mode, **kw),
+        _sharded_view, "sharded", smi)
+    assert rec["kernel"]["launches"]["ssn_scatter_max"] >= SHARDS, rec["kernel"]
+    data = st.data
+    # the traffic writes loaded keys only: recovery holds every loaded row
+    assert len(data) == SHARD_ROWS, (len(data), SHARD_ROWS)
+    assert all(s.rsns > 0 for s in st.shards), "a shard recovered without its checkpoint"
+    rec.update(drained_keys_checked=_read_back(data, expect, "sharded"),
+               n_cross_seen=st.n_cross_seen,
+               n_cross_dropped=st.n_cross_dropped,
+               replayed=[s.n_replayed for s in st.shards],
+               skipped=[s.n_skipped_uncommitted for s in st.shards])
+    print(f"sharded durability: {len(expect)} loaded or drained keys read back; n_cross_seen "
+          f"{st.n_cross_seen}, n_cross_dropped {st.n_cross_dropped}")
+
+    # the replica, live the whole time, promotes to recovery's per-shard state
+    t1 = time.perf_counter()
+    promoted = rep.promote()
+    rec["promote_s"] = time.perf_counter() - t1
+    for p, (a, b) in enumerate(zip(promoted.shards, st.shards)):
+        assert a.data == b.data and a.rsne == b.rsne, f"promote() != recover_sharded, shard {p}"
+    torch.cuda.synchronize()
+    assert not any(bool(w.any()) for w in scatter_max._scratch.values()), \
+        "dirty scatter scratch after the replica's threads"
+    rec["replica"] = dict(rebases=[r.n_rebases for r in rep.replicas],
+                          applied=[r.applier.n_applied for r in rep.replicas],
+                          rounds=[r.applier.n_rounds for r in rep.replicas])
+    print(f"sharded replica: promote {rec['promote_s']:.3f} s equals recover_sharded(kernel) "
+          f"on every shard; rebases {rec['replica']['rebases']}, applied "
+          f"{rec['replica']['applied']}; scatter scratch all zero")
+    for ds in devs:
+        for d in ds:
+            d.close()
+    out["recovery"] = rec
     return out
 
 
@@ -1024,7 +1523,7 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     so = kcuda.build()
     kcuda.lib()
     print(f"built {os.path.basename(so)} in {time.perf_counter() - t0:.1f} s")
@@ -1075,6 +1574,21 @@ def main(argv=None) -> int:
     for mode in ("kernel", "vectorized", "scalar"):
         print(f"recovery s mode={mode}: {out['recovery'][mode]['seconds']:.3f} | {smi}")
     print("main_path " + json.dumps(out, default=float))
+
+    # TPC-C, then sharded Poplar: each path with its own counts
+    for name, run in (("tpcc_path", lambda w: run_tpcc_path(w, args.seed, smi)),
+                      ("sharded_path", lambda w: run_sharded_path(w, args.seed, smi, t_start))):
+        workdir = tempfile.mkdtemp(prefix="chip_smoke-")
+        try:
+            kcuda.reset_launches()
+            path = run(workdir)
+            path["launches"] = dict(kcuda.LAUNCHES)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for kname in ("validate_sequence", "ssn_scatter_max"):
+            assert path["launches"][kname] > 0, f"kernel {kname} never launched on {name}"
+        print(f"{name} launches {path['launches']} | {smi}")
+        print(f"{name} " + json.dumps(path, default=float))
 
     # the LLM serve paths, one model at a time, each with its own counts
     for arch, arch_kernels in SERVE_ARCHS:

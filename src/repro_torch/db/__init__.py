@@ -1,4 +1,4 @@
-"""In-memory DB substrate: tuple store, OCC (section 4.4), YCSB workload.
+"""In-memory DB substrate: tuple store, OCC (section 4.4), YCSB/TPC-C workloads.
 
 Two execution substrates share the flat key space:
 

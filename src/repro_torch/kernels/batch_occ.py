@@ -105,7 +105,7 @@ def seg_reduce(
         op == "min", dev.index, cuda.current_stream(dev.index),
     )
     cuda.check(err, "seg_reduce")
-    cuda.LAUNCHES["seg_reduce"] += 1
+    cuda.count_launch("seg_reduce")
     return out
 
 
@@ -189,5 +189,5 @@ def validate_sequence(
     if err != 0:
         _fw_scratch.pop(slot, None)   # the next call starts on fresh words
         cuda.check(err, "validate_sequence")
-    cuda.LAUNCHES["validate_sequence"] += 1
+    cuda.count_launch("validate_sequence")
     return survive, bases

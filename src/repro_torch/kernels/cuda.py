@@ -63,9 +63,21 @@ _build_log: str = ""
 _raw_stream: Optional[Callable[[int], int]] = None
 
 
+# a replica's tailing thread launches the scatter beside the caller's thread,
+# and ``+=`` on a dict entry is a read-modify-write the interpreter may split
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of ``name`` to :data:`LAUNCHES` (from any thread)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:

@@ -142,5 +142,5 @@ def flash_attention_fwd(
         float(softcap or 0.0), 1.0 / math.sqrt(d), dev.index, cuda.current_stream(dev.index),
     )
     cuda.check(err, "flash_attention")
-    cuda.LAUNCHES["flash_attention"] += 1
+    cuda.count_launch("flash_attention")
     return out

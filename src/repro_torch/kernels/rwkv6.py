@@ -147,5 +147,5 @@ def rwkv6_chunked(
         cuda.current_stream(dev.index),
     )
     cuda.check(err, "rwkv6_chunked")
-    cuda.LAUNCHES["rwkv6_chunked"] += 1
+    cuda.count_launch("rwkv6_chunked")
     return y, state

@@ -90,7 +90,7 @@ def _launch(like: torch.Tensor, s: int, w: int, image, lanes) -> Tuple[torch.Ten
     if err != 0:
         _scratch.pop(slot, None)   # a refused or half-run call may leave words dirty
         cuda.check(err, "ssn_scatter_max")
-    cuda.LAUNCHES["ssn_scatter_max"] += 1
+    cuda.count_launch("ssn_scatter_max")
     return out.unbind(0)
 
 

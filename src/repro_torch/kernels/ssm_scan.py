@@ -143,5 +143,5 @@ def ssm_scan_chunked(
         _DTYPES[x.dtype], dev.index, cuda.current_stream(dev.index),
     )
     cuda.check(err, "ssm_scan_chunked")
-    cuda.LAUNCHES["ssm_scan_chunked"] += 1
+    cuda.count_launch("ssm_scan_chunked")
     return y, state

@@ -348,6 +348,149 @@ def test_kernel_mode_end_to_end_on_the_card(cuda_device, tmp_path):
             st.data, st.rsne, st.n_replayed, st.n_skipped_uncommitted)
 
 
+def _csn_fn(engine):
+    """The checkpoint's CSN source: a forced tick of every buffer (a lagging
+    one heartbeats up to the frontier), then the CSN."""
+    def csn_fn():
+        for i in range(len(engine.buffers)):
+            engine.logger_tick(i, force=True)
+        return engine.commit.advance_csn()
+
+    return csn_fn
+
+
+def _sharded_crash(tmp_path, n_batches=6):
+    """A 3-shard engine in kernel mode on the card: batches with cross-shard
+    specs, a fuzzy checkpoint per shard after batch 2, a crash with one shard's
+    buffers unflushed and a torn frame on shard 0's first device."""
+    import os
+    import random
+
+    from repro_torch.core import CheckpointDaemon
+    from repro_torch.db import TxnSpec
+    from repro_torch.shard import ShardedConfig, ShardedEngine
+
+    eng = ShardedEngine(ShardedConfig(
+        n_shards=3, n_buffers=2, n_workers=2, device_kind="ssd", device_clock="virtual",
+        device_dir=str(tmp_path / "devs"), table_capacity=1 << 12))
+    assert all(sh.occ.mode == "kernel" and sh.occ.device.type == "cuda" for sh in eng.shards)
+    rng = random.Random(5)
+    keys = [f"user{i:010d}" for i in range(3000)]
+    ckpt_dirs = None
+    for b in range(n_batches):
+        specs = []
+        for k in rng.sample(keys, 1200):
+            if rng.random() < 0.1:
+                specs.append(TxnSpec(writes=[(k, b"x" * 40), (rng.choice(keys), b"y" * 40)]))
+            else:
+                specs.append(TxnSpec(reads=[k] if rng.random() < 0.2 else [],
+                                     writes=[(k, f"{b}:{k}".encode() * 4)]))
+        eng.execute_batch(specs, max_rounds=2)
+        if b < n_batches - 1:
+            eng.quiesce()
+        else:                                  # shard 2 dies unflushed
+            for sh in eng.shards[:2]:
+                for i in range(len(sh.engine.buffers)):
+                    sh.engine.logger_tick(i, force=True)
+        if b == 1:
+            ckpt_dirs = []
+            for p, sh in enumerate(eng.shards):
+                d = str(tmp_path / f"ckpt{p}")
+                CheckpointDaemon(d, n_threads=1, m_files=2, csn_fn=_csn_fn(sh.engine)) \
+                    .run_once([sorted((k.encode(), v, s) for k, v, s in sh.table.items() if s > 0)],
+                              epoch=1)
+                ckpt_dirs.append(d)
+    for devs in eng.devices:
+        for d in devs:
+            d.close()
+    with open(os.path.join(str(tmp_path / "devs"), "shard0", "log_0.bin"), "ab") as f:
+        f.write(b"\x07" * 9)
+    return eng, ckpt_dirs
+
+
+def test_recover_sharded_kernel_on_the_card_equals_the_cpu(cuda_device, tmp_path):
+    """``recover_sharded(mode="kernel")`` on the card gives the state of the
+    same call with ``device="cpu"`` and of the vectorized and scalar modes,
+    on logs with cross-shard records, a torn tail and checkpoint images."""
+    from repro_torch.shard import recover_sharded
+
+    eng, ckpt_dirs = _sharded_crash(tmp_path)
+
+    def view(st):
+        return (st.n_cross_seen, st.n_cross_dropped,
+                [(s.data, s.rsns, s.rsne, s.n_replayed, s.n_skipped_uncommitted)
+                 for s in st.shards])
+
+    n0 = cuda.LAUNCHES["ssn_scatter_max"]
+    got = recover_sharded(eng.devices, checkpoint_dirs=ckpt_dirs)      # kernel, cuda
+    assert cuda.LAUNCHES["ssn_scatter_max"] >= n0 + 3                  # one per shard
+    want = view(got)
+    assert want[0] > 0 and all(s.rsns > 0 for s in got.shards)
+    assert view(recover_sharded(eng.devices, checkpoint_dirs=ckpt_dirs, mode="kernel",
+                                device="cpu")) == want
+    for mode in ("vectorized", "scalar"):
+        assert view(recover_sharded(eng.devices, checkpoint_dirs=ckpt_dirs, mode=mode)) == want
+    assert _scratch_is_clean()
+
+
+def test_concurrent_appliers_leave_the_scratch_clean(cuda_device, tmp_path):
+    """Two replicas tail two engines from their own threads, applying through
+    the scatter kernel on the default stream, while this thread launches the
+    same kernel there: every result equals the plain version, the cached
+    scratch is all zero afterwards, and each promoted state equals
+    ``recover()``."""
+    import random
+
+    from repro_torch.core import Txn, Worker
+    from repro_torch.replica import Replica
+
+    engines, replicas = [], []
+    for r in range(2):
+        eng = PoplarEngine(EngineConfig(
+            n_buffers=2, device_kind="null", device_dir=str(tmp_path / f"e{r}"),
+            flush_interval=60.0, device_clock="virtual"))
+        engines.append(eng)
+        replicas.append(Replica(eng.devices, parallel=False, name=f"r{r}"))
+    n0 = cuda.LAUNCHES["ssn_scatter_max"]
+    for rep in replicas:
+        rep.start(poll_interval=1e-4)
+    try:
+        rng = random.Random(9)
+        workers = [[Worker(eng, i) for i in range(4)] for eng in engines]
+        cells = [{f"k{i}": type("Cell", (), {"ssn": 0})() for i in range(64)} for _ in engines]
+        for i in range(3000):
+            e = i % 2
+            ks = rng.sample(sorted(cells[e]), 3)
+            t = Txn(tid=10 + i, write_set=[(k, f"{i}".encode() * 8) for k in ks[:2]],
+                    read_set=[(ks[2], cells[e][ks[2]].ssn)] if i % 5 == 0 else [])
+            workers[e][i % 4].run(t, [cells[e][ks[2]]] if t.read_set else [],
+                                  [cells[e][k] for k in ks[:2]])
+            if i % 25 == 0:
+                for b in range(2):
+                    engines[e].logger_tick(b, force=True)
+            if i % 100 == 0:
+                arrs = _scatter_arrays(np.random.default_rng(i), 1 << (8 + i % 7), 1 << 12)
+                args = [_t(a, cuda_device) for a in arrs]
+                got = ops.ssn_scatter_max(*args)
+                want = ssn_scatter_max_plain(*args)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), i
+        for eng in engines:
+            eng.quiesce(range(4))
+    finally:
+        for rep in replicas:
+            rep.stop()
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["ssn_scatter_max"] > n0 + 60
+    assert _scratch_is_clean()
+    for eng, rep in zip(engines, replicas):
+        st = rep.promote()
+        ref = recover(eng.devices, mode="vectorized")
+        assert (st.data, st.rsne, st.n_replayed, st.n_skipped_uncommitted) == (
+            ref.data, ref.rsne, ref.n_replayed, ref.n_skipped_uncommitted)
+        assert len(st.data) == 64
+    assert _scratch_is_clean()
+
+
 # --- the LLM kernels -----------------------------------------------------------
 # Both versions compute in float32 from the same inputs in another order, so
 # they agree to float32 rounding (the reference's kernel-test tolerance,

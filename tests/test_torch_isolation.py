@@ -6,8 +6,10 @@ and its kernel mode never runs quietly on the CPU.
 * ``import repro_torch`` (and its main-path modules) in a fresh interpreter
   leaves ``jax`` and ``repro`` out of ``sys.modules``.
 * With no CUDA device, ``BatchOCC(mode="kernel")``,
-  ``recover(mode="kernel")``, ``build_model`` and the serve CLI on the
-  default device raise.
+  ``recover(mode="kernel")``, ``ShardedEngine()``,
+  ``recover_sharded(mode="kernel")``, ``ReplicaApplier``, ``Replica``,
+  ``ShardedReplica``, ``build_model`` and the serve CLI on the default
+  device raise; each of the OLTP ones runs with ``device="cpu"``.
 * The kernel wrappers pick the kernel or the plain version by the tensor's
   device alone: no environment switch exists.
 """
@@ -58,6 +60,8 @@ def test_fresh_import_leaves_jax_and_reference_out():
         "import repro_torch.configs.registry, repro_torch.models.rwkv\n"
         "import repro_torch.models.api, repro_torch.models.weights\n"
         "import repro_torch.models.serve_llm, repro_torch.launch.serve\n"
+        "import repro_torch.shard, repro_torch.replica, repro_torch.core.truncate\n"
+        "import repro_torch.core.variants, repro_torch.core.levels, repro_torch.db.tpcc\n"
         "from repro_torch.configs.registry import ARCH_NAMES, get_config\n"
         "[get_config(a) for a in ARCH_NAMES]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
@@ -105,6 +109,55 @@ def test_kernel_recover_without_cuda_raises(no_cuda):
         replay_columnar([], 0, use_kernel=True)
     assert recover(devs, mode="kernel", device="cpu").data == {}
     assert recover(devs, mode="vectorized").data == {}
+
+
+def test_sharded_engine_and_recovery_without_cuda_raise(no_cuda, tmp_path):
+    from repro_torch.db import TxnSpec
+    from repro_torch.shard import ShardedConfig, ShardedEngine, recover_sharded
+
+    cfg = dict(n_shards=2, device_kind="null", device_clock="virtual")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedEngine(**cfg)                               # defaults: kernel, cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedEngine(ShardedConfig(mode="kernel", device="cuda", **cfg))
+    eng = ShardedEngine(device="cpu", device_dir=str(tmp_path), **cfg)
+    assert all(sh.occ.mode == "kernel" and sh.occ.device.type == "cpu" for sh in eng.shards)
+    res = eng.execute_batch([TxnSpec(writes=[(f"user{i}", b"v")]) for i in range(8)])
+    assert len(res.committed) + len(res.cross) == 8
+    eng.quiesce()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recover_sharded(eng.devices)                       # defaults: kernel, cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recover_sharded(eng.devices, mode="kernel", device="cuda")
+    st = recover_sharded(eng.devices, mode="kernel", device="cpu")
+    assert st.data == recover_sharded(eng.devices, mode="vectorized").data
+    assert len(st.data) == 8
+
+
+def test_replicas_without_cuda_raise(no_cuda, tmp_path):
+    from repro_torch.core import EngineConfig, PoplarEngine, Txn, Worker, recover
+    from repro_torch.db import ArrayTable
+    from repro_torch.replica import Replica, ReplicaApplier, ShardedReplica
+
+    eng = PoplarEngine(EngineConfig(n_buffers=2, device_kind="null", device_clock="virtual",
+                                    device_dir=str(tmp_path)))
+    w = Worker(eng, 0)
+    for i in range(5):
+        w.run(Txn(tid=i + 1, write_set=[(f"k{i}", b"v")]), [], [type("C", (), {"ssn": 0})()])
+    eng.quiesce([0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReplicaApplier(ArrayTable())                       # defaults: kernel, cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Replica(eng.devices)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedReplica([eng.devices])
+    assert ReplicaApplier(ArrayTable(), device="cpu").device.type == "cpu"
+    assert ReplicaApplier(ArrayTable(), mode="vectorized").device is None
+    rep = Replica(eng.devices, device="cpu", parallel=False)
+    assert rep.applier.mode == "kernel"
+    assert rep.promote().data == recover(eng.devices, mode="vectorized").data
+    srep = ShardedReplica([eng.devices], device="cpu", parallel=False)
+    assert srep.promote().shards[0].data == rep.table.to_dict()
 
 
 def test_llm_entry_points_without_cuda_raise(no_cuda):
