@@ -54,7 +54,25 @@ together), and then:
    ``recover_sharded`` in three modes equal, reads back every loaded row
    and every drained write, holds ``promote()`` equal to it and the
    scatter's scratch all zero; prints one ``sharded_path`` JSON line;
-   on paths 3, 4a and 4b every fused OCC round's ``validate_sequence``
+4c. drives the OLTP serving tier (``repro_torch.serve``): (a) 16,384
+   conflict-free 1000-B writes arriving 2,048 per step through the stepped
+   group-commit scheduler, cut at 4,096 lanes, equal one direct
+   ``execute_batch`` on a second stack (logs byte for byte, SSNs, ack
+   order, state); (b) ``benchmarks/fig_serve.py``'s two stacks (one engine
+   on 2 SSDs; 4 shards of one SSD) over the 1,000,000-row YCSB table, each
+   at 6,000 and 48,000 offered txn/s through ``OpenLoopDriver`` on the
+   threaded scheduler (goodput, p50/p99/p999, rejects, queue depths,
+   fused-round declines, the card's busy share, a ``HealthMonitor``
+   through the 48,000 point; the serve.* counters equal ``stats()``);
+   (c) per stack a run at 12,000 txn/s killed 0.5 s in after a flight
+   dump, a torn frame, recovery in three modes with every ACKED write
+   read back, and ``explain_recovery`` naming every ACKED gtid
+   ``replayed`` with ``verify_bytes`` true; (d) a traced stepped 4-shard
+   serve run (its DAG, critical path and bytes equal on a second run),
+   the replay-fidelity gate and the autotuner; no executor fault and no
+   ABORTED ticket but by exhausted retries; prints one
+   ``serve_tier_path`` JSON line;
+   on paths 3, 4a, 4b and 4c every fused OCC round's ``validate_sequence``
    is held against its plain version on the round's own inputs;
 5. drives the LLM serve path for ``hymba-1.5b`` and then ``rwkv6-7b``, each
    at full width and depth in bfloat16 with seeded random weights: one
@@ -79,8 +97,10 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
+import platform
 import random
 import re
 import shutil
@@ -134,8 +154,22 @@ from repro_torch.configs.registry import get_config
 from repro_torch.models.api import build_model
 from repro_torch.models.serve_llm import ServeEngine
 from repro_torch.obs import metrics
+from repro_torch.obs.flight import FlightRecorder
+from repro_torch.obs.forensics import RULE_REPLAYED, RULE_TORN_TAIL, explain_recovery, explain_recovery_sharded
+from repro_torch.obs.health import HealthMonitor, SaturationMonitor
 from repro_torch.replica import ShardedReplica
+from repro_torch.serve import (
+    ABORTED,
+    ACKED,
+    GroupCommitScheduler,
+    OpenLoopDriver,
+    ServeConfig,
+    ShardedBackend,
+    SingleBackend,
+    run_stepped_schedule,
+)
 from repro_torch.shard import ShardedConfig, ShardedEngine, recover_sharded
+from repro_torch import trace as ttrace
 from repro_torch.trace import span as tspan
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3.  int32 ALU rate: the data
@@ -176,6 +210,21 @@ SHARD_CROSS = 0.1
 SHARD_VALUE = 1000
 SHARD_SEGMENT_BYTES = 8 << 20    # small enough that whole sealed segments drop
 SMOKE_LIMIT_S = 1200             # the whole run's limit, the kernels' build included
+# the serving tier (benchmarks/fig_serve.py's two stacks over the YCSB table)
+SERVE_P1_TXNS = 16_384           # stepped transparency run: conflict-free writes
+SERVE_P1_STEP = 2_048            # arrivals per step
+SERVE_P1_CUT = 4_096             # cut size: every cut takes the fused round
+SERVE_RATES = (6_000, 48_000)    # offered txn/s: below and past the knee
+SERVE_MAX_TXNS = 12_000          # n = min(this, rate x SERVE_DURATION_S)
+SERVE_DURATION_S = 1.0
+SERVE_SETTLE_S = 30.0
+SERVE_KILL_RATE = 12_000
+SERVE_KILL_AT_S = 0.5
+SERVE_CFG = dict(latency_budget_s=1e-3, max_batch=256)
+SERVE_TRACE_TXNS = 4_096         # the traced stepped 4-shard run
+SERVE_TRACE_STEP = 256
+SERVE_COUNTERS = (("serve.acked", "acked"), ("serve.rejected", "rejected"),
+                  ("serve.aborted", "aborted"), ("serve.retries", "retries"))
 LLM_KERNELS = ("flash_attention", "ssm_scan_chunked", "rwkv6_chunked")
 # the LLM serve paths, each with the kernels its prefill launches once per
 # layer: hymba-1.5b at full width (32 layers, d_model 1600, 25 query / 5 KV
@@ -723,13 +772,20 @@ class _CheckedRounds:
     region, recomputes them with ``validate_sequence_plain`` on the same
     inputs, which launches no kernel, and asserts equality.  ``rounds``
     counts the rounds checked per access bucket ``k``: above k = 32 the
-    kernel runs its warp-per-transaction form."""
+    kernel runs its warp-per-transaction form.
 
-    def __init__(self, what: str):
+    With ``seg_reduce=True`` it does the same for ``kops.occ_seg_reduce``
+    (the first-writer min and the base-SSN max of every round that declines
+    the fused one), against ``seg_reduce_plain``; ``seg_reduces`` counts the
+    calls checked per op.  The calls may come from any thread."""
+
+    def __init__(self, what: str, seg_reduce: bool = False):
         self.what, self.pending, self.rounds = what, [], {}
+        self.seg_pending, self.seg_reduces = [], ({} if seg_reduce else None)
 
     def __enter__(self):
         orig = self._orig = kops.fused_validate_sequence
+        orig_seg = self._orig_seg = kops.occ_seg_reduce
 
         @functools.wraps(orig)
         def checked(acc, a_len, *, n_txn, k, cap):
@@ -737,12 +793,22 @@ class _CheckedRounds:
             self.pending.append((acc, a_len, n_txn, k, cap, survive, bases))
             return survive, bases
 
+        @functools.wraps(orig_seg)
+        def checked_seg(key_id, val, *, n_slots, op="max"):
+            out = orig_seg(key_id, val, n_slots=n_slots, op=op)
+            self.seg_pending.append((key_id, val, n_slots, op, out))
+            return out
+
         kops.fused_validate_sequence = checked
+        if self.seg_reduces is not None:
+            kops.occ_seg_reduce = checked_seg
         return self
 
     def __exit__(self, *exc):
         kops.fused_validate_sequence = self._orig
+        kops.occ_seg_reduce = self._orig_seg
         self.pending.clear()
+        self.seg_pending.clear()
 
     def check(self):
         for acc, a_len, n_txn, k, cap, survive, bases in self.pending:
@@ -751,6 +817,12 @@ class _CheckedRounds:
                 f"{self.what}: validate_sequence != plain at n_txn={n_txn}, k={k}, cap={cap}"
             self.rounds[k] = self.rounds.get(k, 0) + 1
         self.pending.clear()
+        for key_id, val, n_slots, op, out in self.seg_pending:
+            assert out.is_cuda, f"{self.what}: seg_reduce ran off the card"
+            assert torch.equal(out, seg_reduce_plain(key_id, val, n_slots, op)), \
+                f"{self.what}: seg_reduce {op} != plain at {key_id.numel()} items, {n_slots} slots"
+            self.seg_reduces[op] = self.seg_reduces.get(op, 0) + 1
+        self.seg_pending.clear()
 
 
 def _expect_write(expect, kb, v, s):
@@ -1355,7 +1427,10 @@ def run_sharded_path(workdir, seed, smi, t_start):
     print(f"sharded durability: {len(expect)} loaded or drained keys read back; n_cross_seen "
           f"{st.n_cross_seen}, n_cross_dropped {st.n_cross_dropped}")
 
-    # the replica, live the whole time, promotes to recovery's per-shard state
+    # the replica, live the whole time, promotes to recovery's per-shard state;
+    # a fault in its tailing thread ends the thread and loses what it shipped
+    assert rep._thread is not None and rep._thread.is_alive(), \
+        "the replica's tailing thread died before promote()"
     t1 = time.perf_counter()
     promoted = rep.promote()
     rec["promote_s"] = time.perf_counter() - t1
@@ -1374,6 +1449,542 @@ def run_sharded_path(workdir, seed, smi, t_start):
         for d in ds:
             d.close()
     out["recovery"] = rec
+    return out
+
+
+# --- phase 4c: the OLTP serving tier -----------------------------------------
+
+def _serve_engine_cfg(path: str, n_buffers: int, **kw) -> EngineConfig:
+    return EngineConfig(n_buffers=n_buffers, device_kind="ssd", device_dir=path, **kw)
+
+
+def _close_all(devs):
+    for ds in devs:
+        for d in ds:
+            d.close()
+
+
+def _terminal_ok(sched, tickets, what: str):
+    """No executor fault, no retry and no ABORTED ticket.  Every run of this
+    phase sends blind writes, and a cut is conflict-free over its keys, so
+    every transaction wins its first round: an abort or a retry can only
+    come from a fault."""
+    st = sched.stats()
+    assert st["exec_errors"] == 0, f"{what}: {st['exec_errors']} executor faults"
+    assert st["retries"] == 0 and st["aborted"] == 0, \
+        f"{what}: {st['retries']} retries and {st['aborted']} aborts of blind writes"
+    assert not any(t.status == ABORTED for t in tickets), f"{what}: a ticket ABORTED"
+    return st
+
+
+def _host() -> dict:
+    """The host that ran the phase (host-clock numbers depend on it)."""
+    cpu = "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            cpu = next((ln.split(":", 1)[1].strip() for ln in f if ln.startswith("model name")), cpu)
+    except OSError:
+        pass
+    return dict(name=platform.node(), cpu=cpu, cores=len(os.sched_getaffinity(0)))
+
+
+def _serve_p1(workdir, seed):
+    """Group-commit transparency (P1) on the card: conflict-free writes
+    arriving ``SERVE_P1_STEP`` per step, cut at ``SERVE_P1_CUT``, equal one
+    direct ``execute_batch`` of the same specs on a second stack."""
+    rng = np.random.default_rng(seed)
+    n = SERVE_P1_TXNS
+    blob = rng.bytes(n * SHARD_VALUE)
+    specs = [TxnSpec(writes=[(ycsb.key_of(i), blob[i * SHARD_VALUE:(i + 1) * SHARD_VALUE])])
+             for i in range(n)]
+
+    def stack(tag):
+        cfg = _serve_engine_cfg(os.path.join(workdir, tag), 1, device_clock="virtual",
+                                flush_interval=60.0)
+        return SingleBackend.make("kernel", n_workers=2, cfg=cfg, table_capacity=2 * n,
+                                  device="cuda")
+
+    be_s, be_d = stack("p1-serve"), stack("p1-direct")
+    # two steps of arrivals fill one cut: its head waits out a budget of 2
+    sched = GroupCommitScheduler(be_s, ServeConfig(
+        max_batch=SERVE_P1_CUT, latency_budget_steps=SERVE_P1_CUT // SERVE_P1_STEP,
+        queue_capacity=10**6))
+    with _CheckedRounds("serve tier P1", seg_reduce=True) as rounds:
+        t0 = time.perf_counter()
+        tickets = run_stepped_schedule(sched, [(i // SERVE_P1_STEP, sp) for i, sp in enumerate(specs)])
+        serve_s = time.perf_counter() - t0
+        rounds.check()
+        t0 = time.perf_counter()
+        res = be_d.occ.execute_batch(specs, max_rounds=1)
+        direct_s = time.perf_counter() - t0
+        rounds.check()
+    st = _terminal_ok(sched, tickets, "serve tier P1")
+    assert all(t.status == ACKED for t in tickets), "P1: an admitted write did not ack"
+    assert [t.ack_seq for t in tickets] == list(range(n)), "P1: acks out of admission order"
+    assert st["cuts"] == n // SERVE_P1_CUT and st["mean_cut"] == SERVE_P1_CUT, st
+    assert not res.aborted and list(res.committed_idx) == list(range(n))
+    for _ in range(200):
+        be_d.tick()
+        be_d.drain()
+        if all(t.committed for t in res.committed):
+            break
+    assert all(t.committed for t in res.committed), "P1: the direct batch did not settle"
+    assert [t.ssn for t in tickets] == [t.ssn for t in res.committed], "P1: SSNs differ"
+    assert be_s.table.to_dict() == be_d.table.to_dict(), "P1: final states differ"
+    _close_all([be_s.engine.devices, be_d.engine.devices])
+    logs = [[d.read_all() for d in be.engine.devices] for be in (be_s, be_d)]
+    assert logs[0] == logs[1], "P1: device logs differ"
+    assert sum(rounds.rounds.values()) == st["cuts"] + 1, rounds.rounds
+    return dict(txns=n, cut=SERVE_P1_CUT, cuts=st["cuts"], serve_s=serve_s, direct_s=direct_s,
+                log_bytes=sum(len(b) for b in logs[0]), validate_rounds_checked=rounds.rounds,
+                seg_reduces_checked=rounds.seg_reduces)
+
+
+def _serve_stack(name, workdir, seed):
+    """``benchmarks/fig_serve.py``'s two stacks over the YCSB table."""
+    path = os.path.join(workdir, name)
+    if name == "1shard":
+        be = SingleBackend.make(
+            "kernel", n_workers=2, device="cuda", table_capacity=N_ROWS + 1,
+            cfg=_serve_engine_cfg(path, 2, device_clock="real", flush_interval=1e-3,
+                                  logger_poll=1e-4))
+        devs = [be.engine.devices]
+    else:
+        be = ShardedBackend.make(n_shards=SHARDS, n_buffers=1, n_workers=2, device_kind="ssd",
+                                 device_dir=path, device="cuda",
+                                 table_capacity=N_ROWS // SHARDS * 5 // 4)
+        devs = be.eng.devices
+    t0 = time.perf_counter()
+    ycsb.load(be.table, N_ROWS, seed=seed)
+    return be, devs, path, time.perf_counter() - t0
+
+
+class _StallProbe:
+    """The host's stalls during an open-loop point: the seconds of every log
+    device write (its ``fsync`` and emulated device time included) and of
+    every garbage-collector pass."""
+
+    def __init__(self, devs):
+        self.devs = [d for ds in devs for d in ds]
+        self.writes, self.gcs, self._gc_t0 = [], [], 0.0
+
+    def __enter__(self):
+        for d in self.devs:
+            def timed(data, _write=d.write):
+                t0 = time.perf_counter()
+                _write(data)
+                self.writes.append(time.perf_counter() - t0)
+            d.write = timed
+        gc.callbacks.append(self._gc)
+        return self
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        else:
+            self.gcs.append((info["generation"], time.perf_counter() - self._gc_t0))
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._gc)
+        for d in self.devs:
+            del d.write                      # back to the class's method
+
+    def summary(self) -> dict:
+        w = np.sort(np.asarray(self.writes)) * 1e3
+        g = [ms * 1e3 for _, ms in self.gcs]
+        return dict(device_writes=len(w), write_p50_ms=float(np.median(w)) if len(w) else 0.0,
+                    write_max_ms=float(w[-1]) if len(w) else 0.0,
+                    writes_over_50ms=int((w > 50).sum()), gc_passes=len(g),
+                    gc_gen2_passes=sum(gen == 2 for gen, _ in self.gcs),
+                    gc_max_ms=max(g, default=0.0))
+
+
+def _open_loop_point(be, devs, rate, seed, smi, what, health=False, profiled=False):
+    """One offered load through the threaded scheduler: Poisson arrivals,
+    latency from the scheduled arrival (``OpenLoopDriver``); the serve.*
+    counters must equal ``stats()``, and every ``seg_reduce`` of the point
+    equals its plain version (checked after the point).  With ``profiled``
+    the driver runs under the CUDA profiler (device activity only) for the
+    card's busy share; its host-clock numbers then carry the profiler's
+    cost.  ``devs``: the stack's log devices, whose writes ``_StallProbe``
+    times.  Returns the point's row and its ACKED tickets."""
+    n = min(SERVE_MAX_TXNS, int(rate * SERVE_DURATION_S))
+    specs = ycsb.YCSBWriteOnly(N_ROWS, seed=seed + int(rate)).next_specs(n)
+    metrics.enable()
+    sched = GroupCommitScheduler(be, ServeConfig(**SERVE_CFG))
+    tickets, submit = [], sched.submit
+
+    def _submit(*a, **kw):               # keep the driver's tickets for the kill's oracle
+        tickets.append(submit(*a, **kw))
+        return tickets[-1]
+
+    sched.submit = _submit
+    depths, stop = [], threading.Event()
+
+    def _sampler():
+        while not stop.is_set():
+            depths.append(be.queue_depths())
+            time.sleep(5e-3)
+
+    sampler = threading.Thread(target=_sampler, daemon=True, name="serve-depths")
+    hm = HealthMonitor([SaturationMonitor(sched)]) if health else None
+    launches0 = dict(kcuda.LAUNCHES)
+    dev_rows = {}
+    with _CheckedRounds(what, seg_reduce=True) as checked, _StallProbe(devs) as stalls:
+        sched.start()
+        sampler.start()
+        if hm is not None:
+            hm.start(poll_interval=0.05)
+        t0 = time.perf_counter()
+        try:
+            driver = OpenLoopDriver(sched, specs, rate_per_s=rate, seed=seed + int(rate) + 1)
+            if profiled:
+                rep, dev_rows = _device_ms(lambda: driver.run(settle_timeout_s=SERVE_SETTLE_S))
+            else:
+                rep = driver.run(settle_timeout_s=SERVE_SETTLE_S)
+        finally:
+            wall = time.perf_counter() - t0
+            if hm is not None:
+                hm.stop()
+            stop.set()
+            sampler.join(timeout=10)
+            sched.stop(quiesce=True)
+        checked.check()
+    tickets_st = _terminal_ok(sched, tickets, what)
+    snap = metrics.disable()
+    c = snap["counters"]
+    for name, key in SERVE_COUNTERS:
+        assert c.get(name, 0) == tickets_st[key], (what, name, c.get(name, 0), tickets_st[key])
+    assert c.get("serve.cut_txns", 0) == sched.n_cut_txns, what
+    assert snap["sketches"]["serve.ack_latency"]["count"] == tickets_st["acked"], what
+    assert rep.acked + rep.rejected + rep.aborted == rep.submitted == n, (what, rep)
+    assert rep.aborted == 0, (what, rep)
+    per_shard = [max(d[i] for d in depths) for i in range(len(depths[0]))] if depths else []
+    row = dict(offered_per_s=rate, profiled=profiled, submitted=rep.submitted, acked=rep.acked,
+               rejected=rep.rejected, aborted=rep.aborted, retries=tickets_st["retries"],
+               goodput_per_s=rep.goodput_per_s,
+               p50_ms=rep.pct_ms(50), p99_ms=rep.pct_ms(99), p999_ms=rep.pct_ms(99.9),
+               duration_s=rep.duration_s, mean_cut=tickets_st["mean_cut"],
+               cuts=tickets_st["cuts"], sched_queue_max=tickets_st["max_queue_depth"],
+               qdepth_per_shard_max=per_shard,
+               declines={k: c.get(k, 0) for k in DECLINES}, fused_rounds=c.get("occ.fused.rounds", 0),
+               seg_reduces_checked=checked.seg_reduces, stalls=stalls.summary(),
+               launches=_delta(dict(kcuda.LAUNCHES), launches0), wall_s=wall, smi=smi)
+    if profiled:
+        assert dev_rows, f"{what}: the profiler saw no device activity"
+        busy = sum(ms for ms, _ in dev_rows.values())
+        row["device_ms"] = busy
+        row["device_busy_share"] = busy / (wall * 1e3)
+    if hm is not None:
+        row["health_events"] = [e.to_dict() for e in hm.history]
+    print(f"{what} {rate} txn/s offered{' (profiled)' if profiled else ''}: goodput "
+          f"{row['goodput_per_s']:.1f}, p50/p99/p999 "
+          f"{row['p50_ms']:.3f} / {row['p99_ms']:.3f} / {row['p999_ms']:.3f} ms, submitted "
+          f"{rep.submitted}, acked {rep.acked}, rejected {rep.rejected}, aborted {rep.aborted}, "
+          f"retries 0, mean cut {row['mean_cut']:.2f}, queue max {row['sched_queue_max']}, "
+          f"per-shard depth max {per_shard}, declines {row['declines']}, launches "
+          f"{row['launches']}, seg_reduce == plain on {checked.seg_reduces}, stalls "
+          f"{row['stalls']}"
+          + (f", device busy {row['device_busy_share']:.4%} ({row['device_ms']:.2f} ms)"
+             if profiled else "") + f" | {smi}")
+    if hm is not None:
+        print(f"{what} health events at {rate} txn/s: {len(hm.history)}: "
+              + "; ".join(f"{e.severity} {e.kind}: {e.message}" for e in list(hm.history)[:5]))
+    return row, [t for t in tickets if t.status == ACKED]
+
+
+def _kill_run(be, devs, path, name, seed, acked, smi):
+    """Open loop at ``SERVE_KILL_RATE`` cut ``SERVE_KILL_AT_S`` in: a flight
+    dump, ``stop(quiesce=False)`` (the kill), a torn frame on shard 0's
+    device 0; three recovery modes equal, every ACKED write read back, and
+    ``explain_recovery`` names every ACKED gtid ``replayed``."""
+    n = int(SERVE_KILL_RATE * SERVE_DURATION_S)
+    specs = ycsb.YCSBWriteOnly(N_ROWS, seed=seed + 7).next_specs(n)
+    offsets = np.cumsum(np.random.default_rng(seed + 8).exponential(1.0 / SERVE_KILL_RATE, n))
+    metrics.enable()
+    sched = GroupCommitScheduler(be, ServeConfig(**SERVE_CFG))
+    flight = FlightRecorder(os.path.join(path, "kill"), extra_fn=sched.stats)
+    tickets = []
+    with _CheckedRounds(f"{name} kill", seg_reduce=True) as checked:
+        sched.start()
+        t0 = time.perf_counter()
+        try:
+            for off, spec in zip(offsets, specs):
+                if off >= SERVE_KILL_AT_S:
+                    break
+                wait = t0 + off - time.perf_counter()
+                if wait > 0:
+                    time.sleep(wait)
+                tickets.append(sched.submit(spec, client_id=len(tickets)))
+            flight_path = flight.dump("kill")
+        finally:
+            sched.stop(quiesce=False)        # the kill: no final flush, no final drain
+        checked.check()
+    st = _terminal_ok(sched, tickets, f"{name} kill")
+    metrics.disable()
+    killed = [t for t in tickets if t.status == ACKED]
+    assert killed, f"{name}: nothing acked before the kill"
+    acked = acked + killed
+    _close_all(devs)
+    torn_dir = path if name == "1shard" else os.path.join(path, "shard0")
+    with open(os.path.join(torn_dir, "log_0.bin"), "ab") as f:
+        f.write(_torn_record())
+        f.flush()
+        os.fsync(f.fileno())
+    expect = {}
+    for t in acked:
+        for k, v in t.spec.writes:
+            _expect_write(expect, k.encode(), v, t.ssn)
+    split = {}
+
+    def _split(recover_fn, rdevs):
+        """``recover_fn`` with each mode's decode and replay seconds and its
+        garbage-collector passes kept in ``split``."""
+        def fn(mode, **kw):
+            with _StallProbe([]) as probe:
+                st = recover_fn(rdevs, mode=mode, **kw)
+            r = getattr(st, "report", None)
+            split[mode] = dict(
+                {k: v for k, v in probe.summary().items() if k.startswith("gc")},
+                **({} if r is None else dict(fused=r.fused, decode_s=r.decode_s,
+                                             replay_s=r.replay_s)))
+            return st
+        return fn
+
+    if name == "1shard":
+        rdevs = make_devices(len(devs[0]), "ssd", path, "virtual")
+        recover_fn, view, explain = recover, _state_view, explain_recovery
+    else:
+        rdevs = [make_devices(1, "ssd", os.path.join(path, f"shard{p}"), "virtual")
+                 for p in range(SHARDS)]
+        recover_fn, view, explain = recover_sharded, _sharded_view, explain_recovery_sharded
+    rec, state = _recover_modes(_split(recover_fn, rdevs), view, f"{name} kill", smi)
+    for mode, parts in split.items():
+        rec[mode].update(parts)
+    # the kernel mode once more, after the others: does its first call pay
+    # for something the later modes do not?
+    t1 = time.perf_counter()
+    again = _split(recover_fn, rdevs)("kernel", device="cuda")
+    rec["kernel_again"] = dict(seconds=time.perf_counter() - t1, **split["kernel"])
+    assert view(again) == view(state), f"{name}: the kernel mode's second recovery differs"
+    t1 = time.perf_counter()
+    ex = explain(rdevs, flight=flight_path)
+    rec["read_back"] = _read_back(state.data, expect, f"{name} kill")
+    agrees, bad = ex.verify_bytes(state)
+    explain_s = time.perf_counter() - t1
+    assert agrees, f"{name}: verify_bytes disagrees on {bad[:3]}"
+    for t in acked:
+        v = ex.verdicts[t.txn.tid]
+        assert v.kept and v.rule == RULE_REPLAYED, (name, t.txn.tid, v.rule)
+    counts = ex.counts()
+    assert counts.get(RULE_TORN_TAIL, 0) >= 1, counts
+    assert ex.flight["reason"] == "kill", ex.flight
+    _close_all(rdevs if name != "1shard" else [rdevs])
+    out = dict(submitted=len(tickets), acked_in_kill_run=len(killed),
+               unacked_at_kill=len(tickets) - len(killed), acked_read_back=len(acked),
+               recovery=rec, verdicts=counts, explain_s=explain_s,
+               max_unacked=st["max_unacked"], seg_reduces_checked=checked.seg_reduces)
+    print(f"{name} kill at {SERVE_KILL_AT_S} s of {SERVE_KILL_RATE} txn/s: {len(tickets)} "
+          f"submitted, {len(killed)} acked before the kill; {len(expect)} acked keys read back "
+          f"in every mode; verdicts {counts}, verify_bytes True ({explain_s:.3f} s); recovery "
+          f"split {dict((m, rec[m]) for m in ('kernel', 'kernel_again', 'vectorized', 'scalar'))}"
+          f" | {smi}")
+    return out
+
+
+def _traced_stepped_run(workdir, tag, seed, shards=SHARDS):
+    """A stepped serve run with the tracer armed: ``SERVE_TRACE_TXNS``
+    1000-B writes, ``SERVE_TRACE_STEP`` submitted per step, the submissions
+    in driver spans.  On 4 shards 10% of the writes are cross-shard; on one
+    shard it is the 1shard stack (2 SSDs), each write to a key of its own:
+    with a key written twice the DAG is cyclic (ROADMAP Queue C).
+    Every ``seg_reduce`` of the run is held against its plain version
+    after the trace closes."""
+    path = os.path.join(workdir, tag)
+    ecfg = _serve_engine_cfg(path, 1 if shards > 1 else 2, device_clock="virtual",
+                             flush_interval=60.0)
+    if shards > 1:
+        be = ShardedBackend.make(n_shards=shards, n_workers=2, device="cuda", device_dir=path,
+                                 engine=ecfg, table_capacity=2 * SERVE_TRACE_TXNS)
+        devs = be.eng.devices
+        buckets = [[] for _ in range(shards)]
+        for i in range(2 * SERVE_TRACE_TXNS):
+            k = ycsb.key_of(i)
+            buckets[be.eng.shard_of(k)].append(k)
+        specs = _ShardedYCSB(buckets, seed).next_batch(SERVE_TRACE_TXNS)
+    else:
+        be = SingleBackend.make("kernel", n_workers=2, device="cuda", cfg=ecfg,
+                                table_capacity=2 * SERVE_TRACE_TXNS + 1)
+        devs = [be.engine.devices]
+        rng = np.random.default_rng(seed)
+        blob = rng.bytes(SERVE_TRACE_TXNS * SHARD_VALUE)
+        specs = [TxnSpec(writes=[(ycsb.key_of(int(k)),
+                                  blob[i * SHARD_VALUE:(i + 1) * SHARD_VALUE])])
+                 for i, k in enumerate(rng.permutation(2 * SERVE_TRACE_TXNS)[:SERVE_TRACE_TXNS])]
+    sched = GroupCommitScheduler(be, ServeConfig(max_batch=SERVE_CFG["max_batch"],
+                                                 queue_capacity=10**6))
+    with _CheckedRounds(f"traced {tag}", seg_reduce=True) as checked:
+        tspan.enable()
+        t0 = time.perf_counter()
+        try:
+            tickets = []
+            for i in range(0, len(specs), SERVE_TRACE_STEP):
+                td = time.perf_counter()
+                tickets += [sched.submit(sp) for sp in specs[i:i + SERVE_TRACE_STEP]]
+                tspan.TRACER.record(tspan.ST_DRIVER, t0=td, t1=time.perf_counter(),
+                                    n_txn=SERVE_TRACE_STEP)
+                sched.step()
+            sched.run_until_drained()
+        finally:
+            dump = tspan.disable()
+        elapsed = time.perf_counter() - t0
+        checked.check()
+    _terminal_ok(sched, tickets, f"traced {tag}")
+    assert all(t.status == ACKED for t in tickets), f"traced {tag}: a write did not ack"
+    _close_all(devs)
+    n_cross = sum(len(t.txn.parts) > 1 for t in tickets if hasattr(t.txn, "parts"))
+    return dump, elapsed, n_cross, checked.seg_reduces
+
+
+def _fidelity_run():
+    """The reference's replay-fidelity gate at its own shape
+    (``tests/test_trace_sim.py``): a single-shard executor loop of 8 batches
+    of 256 over 512 keys, its driver halves in driver spans, traced end to
+    end; ``simulate_dag`` must give the measured wall time within 10%."""
+    n_keys, batch, n_batch = 512, 256, 8
+    be = SingleBackend.make("kernel", n_workers=2, device="cuda", table_capacity=n_keys + 1,
+                            cfg=EngineConfig(n_buffers=2, device_kind="null",
+                                             device_clock="virtual", flush_interval=5e-4,
+                                             logger_poll=1e-5))
+    for i in range(n_keys):
+        be.table.insert(ycsb.key_of(i), b"\x00")
+    with _CheckedRounds("fidelity loop", seg_reduce=True) as checked:
+        be.execute([TxnSpec(writes=[(ycsb.key_of(0), b"w")])])
+        be.drain()
+        tspan.enable()
+        t0 = time.perf_counter()
+        for b in range(n_batch):
+            td = time.perf_counter()
+            specs = [TxnSpec(writes=[(ycsb.key_of((b * batch + i) % n_keys),
+                                      bytes([i % 251]) * 64)]) for i in range(batch)]
+            tspan.TRACER.record(tspan.ST_DRIVER, t0=td, t1=time.perf_counter(), n_txn=batch)
+            be.execute(specs)
+            td = time.perf_counter()
+            be.drain()
+            tspan.TRACER.record(tspan.ST_DRIVER, t0=td, t1=time.perf_counter())
+        elapsed = time.perf_counter() - t0
+        dump = tspan.disable()
+        checked.check()
+    return dump, elapsed, checked.seg_reduces
+
+
+def _serve_trace(workdir, seed, smi):
+    """The trace stack on the serving tier: the DAG of a traced stepped
+    4-shard run, its critical path, the same bytes from a second identical
+    run; the replay of a traced stepped 1shard run beside its measured time
+    (reported: a serve trace has no span for the scheduler's own work, which
+    the replay cannot see); the reference's replay-fidelity gate at its own
+    shape; the autotuner."""
+    dump, elapsed, n_cross, seg_a = _traced_stepped_run(workdir, "trace-a", seed)
+    dump_b, _, _, seg_b = _traced_stepped_run(workdir, "trace-b", seed)
+    dag = ttrace.build_dag(dump)
+    assert dag.canonical_bytes() == ttrace.build_dag(dump_b).canonical_bytes(), \
+        "two identical stepped runs gave different DAG bytes"
+    path, attr = ttrace.critical_path(dag)
+    assert abs(sum(attr.values()) - dump.makespan()) <= 1e-9 * dump.makespan(), attr
+    # a sharded serve trace joins each ack to every shard's flush lanes by a
+    # per-shard SSN, which makes the DAG cyclic: the reference's replay
+    # refuses it too (ROADMAP Queue C); the 1shard serve trace of distinct
+    # keys replays
+    try:
+        ttrace.simulate_dag(dag)
+        sharded_replay = "ok"
+    except ValueError as e:
+        assert "cycle" in str(e), e
+        sharded_replay = str(e)
+    dump1, elapsed1, _, seg_1 = _traced_stepped_run(workdir, "trace-1shard", seed, shards=1)
+    dag1 = ttrace.build_dag(dump1)
+    _, attr1 = ttrace.critical_path(dag1)
+    assert abs(sum(attr1.values()) - dump1.makespan()) <= 1e-9 * dump1.makespan(), attr1
+    replay1 = ttrace.simulate_dag(dag1)
+    fdump, fwall, seg_f = _fidelity_run()
+    replay = ttrace.simulate_dag(ttrace.build_dag(fdump))
+    assert abs(replay.makespan - fwall) <= 0.10 * fwall, (replay.makespan, fwall)
+    model = ttrace.CostModel.fit(dump)
+    prof = ttrace.WorkloadProfile.from_dump(dump)
+    tune = ttrace.autotune(model, prof, n_txn=SERVE_TRACE_TXNS, shards=SHARDS,
+                           cross_ratio=SHARD_CROSS)
+    seg = {}
+    for part in (seg_a, seg_b, seg_1, seg_f):
+        for op, n in part.items():
+            seg[op] = seg.get(op, 0) + n
+    out = dict(txns=SERVE_TRACE_TXNS, cross=n_cross, spans=dump.n, dag_nodes=dag.n_nodes,
+               makespan_s=dump.makespan(), elapsed_s=elapsed,
+               critical_path=dict(nodes=len(path), attribution_s=attr),
+               fingerprint=dag.fingerprint(), sharded_replay=sharded_replay,
+               serve_1shard_replay=dict(measured_s=elapsed1, makespan_s=dump1.makespan(),
+                                        replay_s=replay1.makespan,
+                                        rel_err=replay1.makespan / elapsed1 - 1.0,
+                                        critical_path_s=attr1),
+               fidelity_reference_shape=dict(measured_s=fwall, replay_s=replay.makespan,
+                                             rel_err=replay.makespan / fwall - 1.0),
+               autotune=dict(batch_size=tune.batch_size, devices=tune.devices,
+                             predicted_txn_s=tune.predicted.txn_s),
+               seg_reduces_checked=seg)
+    print(f"serve trace: 4-shard stepped run of {SERVE_TRACE_TXNS} txns ({n_cross} cross-shard), "
+          f"{dump.n} spans, makespan {dump.makespan():.3f} s, critical path "
+          + ", ".join(f"{k} {v:.4f}" for k, v in sorted(attr.items(), key=lambda kv: -kv[1]))
+          + f"; identical bytes on a second run; sharded replay: {sharded_replay}; 1shard serve "
+          f"run: replay {replay1.makespan:.4f} s vs measured {elapsed1:.4f} s "
+          f"({out['serve_1shard_replay']['rel_err']:+.2%}, not gated); fidelity gate at the "
+          f"reference test's shape: replay {replay.makespan:.4f} s vs measured {fwall:.4f} s "
+          f"({out['fidelity_reference_shape']['rel_err']:+.2%}); autotune picks batch "
+          f"{tune.batch_size} x {tune.devices} devices ({tune.predicted.txn_s:.0f} txn/s "
+          f"predicted); seg_reduce == plain on {seg} | {smi}")
+    return out
+
+
+def run_serve_tier_path(workdir, seed, smi):
+    """The OLTP serving tier on the card: (a) stepped group-commit
+    transparency at 4,096-lane cuts, (b) the open loop on
+    ``benchmarks/fig_serve.py``'s two stacks over the YCSB table, (c) a kill
+    per stack, recovered in three modes and explained, (d) the trace DAG,
+    simulator and autotuner over the serve tier.  Each open-loop point runs
+    twice: without the profiler (goodput and latencies) and then under it
+    (the card's busy share).  ``seg_reduces_checked`` counts the phase's
+    ``seg_reduce`` calls held against the plain version, per op."""
+    out = {"rows": N_ROWS, "reduced": f"{PAPER_ROWS} -> {N_ROWS} rows", "config": SERVE_CFG,
+           "host": _host()}
+    t_phase = time.perf_counter()
+    out["p1"] = _serve_p1(workdir, seed)
+    p1 = out["p1"]
+    print(f"serve tier P1: {p1['txns']} writes in {p1['cuts']} cuts of {p1['cut']} equal one "
+          f"direct execute_batch (logs of {p1['log_bytes']} bytes byte-identical, SSNs, ack "
+          f"order, state); serve {p1['serve_s']:.3f} s, direct {p1['direct_s']:.3f} s; rounds "
+          f"checked {p1['validate_rounds_checked']}, seg_reduce == plain on "
+          f"{p1['seg_reduces_checked']} | {smi}")
+    seg = [p1["seg_reduces_checked"]]
+    for name in ("1shard", "4shard"):
+        be, devs, path, load_s = _serve_stack(name, workdir, seed)
+        print(f"serve tier {name}: {N_ROWS} rows loaded in {load_s:.3f} s")
+        stack = {"load_s": load_s, "points": []}
+        acked = []
+        for rate in SERVE_RATES:
+            for profiled in (False, True):
+                row, point_acked = _open_loop_point(
+                    be, devs, rate, seed, smi, f"serve tier {name}",
+                    health=rate == max(SERVE_RATES) and not profiled, profiled=profiled)
+                stack["points"].append(row)
+                seg.append(row["seg_reduces_checked"])
+                acked += point_acked
+        stack["kill"] = _kill_run(be, devs, path, name, seed, acked, smi)
+        seg.append(stack["kill"]["seg_reduces_checked"])
+        out[name] = stack
+        del be, devs
+    out["trace"] = _serve_trace(workdir, seed, smi)
+    seg.append(out["trace"]["seg_reduces_checked"])
+    out["seg_reduces_checked"] = {op: sum(part.get(op, 0) for part in seg) for op in ("min", "max")}
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1589,6 +2200,22 @@ def main(argv=None) -> int:
             assert path["launches"][kname] > 0, f"kernel {kname} never launched on {name}"
         print(f"{name} launches {path['launches']} | {smi}")
         print(f"{name} " + json.dumps(path, default=float))
+
+    # the serving tier over the YCSB table, with its own counts
+    workdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        kcuda.reset_launches()
+        tier = run_serve_tier_path(workdir, args.seed, smi)
+        tier["launches"] = dict(kcuda.LAUNCHES)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for kname in OLTP_KERNELS:
+        assert tier["launches"][kname] > 0, f"kernel {kname} never launched on serve_tier_path"
+    # every seg_reduce launch of the phase was held against its plain version
+    assert sum(tier["seg_reduces_checked"].values()) == tier["launches"]["seg_reduce"], tier
+    print(f"serve_tier_path launches {tier['launches']} ({tier['seconds']:.1f} s), seg_reduce == "
+          f"plain on every launch {tier['seg_reduces_checked']}, host {tier['host']} | {smi}")
+    print("serve_tier_path " + json.dumps(tier, default=float))
 
     # the LLM serve paths, one model at a time, each with its own counts
     for arch, arch_kernels in SERVE_ARCHS:

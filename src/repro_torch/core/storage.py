@@ -455,9 +455,15 @@ class StorageDevice:
             return entries
 
     def close(self) -> None:
-        if self._fh is not None:
-            self._fh.close()
-            self._fh = None
+        """Close the tail's append handle.  Under the device lock, like every
+        reader: a log shipper polling from another thread checks ``_fh`` and
+        flushes it inside the lock, so closing outside it could close the
+        handle between that check and the flush (``flush of closed file``).
+        Reads after a close go through ``path``."""
+        with self._lock:
+            if self._fh is not None:
+                self._fh.close()
+                self._fh = None
 
     # --- stats -----------------------------------------------------------
     def stats(self) -> Dict[str, float]:

@@ -28,6 +28,7 @@ for a CUDA tensor; any other device raises.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -48,6 +49,10 @@ _I32 = torch.int32
 #: wrap.  Keyed by stream, so that no two streams share one.
 _fw_scratch: Dict[Tuple[int, int], List] = {}
 _EPOCH_MAX = 2**32 - 1
+#: Held from the scratch lookup through the launch: two host threads on one
+#: stream then raise the epoch one after the other and enqueue in that order,
+#: so neither reads the other's first writers nor re-zeroes words in use.
+_fw_lock = threading.Lock()
 
 
 def _check_i32(name: str, *tensors: torch.Tensor) -> torch.device:
@@ -171,23 +176,25 @@ def validate_sequence(
     index = dev.index
     stream = cuda.current_stream(index)
     slot = (index, stream)
-    scratch = _fw_scratch.get(slot)
-    if scratch is None or scratch[0].shape[0] < cap:
-        scratch = _fw_scratch[slot] = [acc.new_zeros(max(cap, 1), dtype=torch.int64), 0]
-    elif scratch[1] == _EPOCH_MAX:
-        scratch[0].zero_()
-        scratch[1] = 0
-    scratch[1] += 1
     # two allocations: one block with a bool view into it costs more host
     # time than both (tools/launch_variants.py)
     survive = acc.new_empty(n_txn, dtype=torch.bool)
     bases = acc.new_empty(n_txn)
-    err = cuda.lib().repro_validate_sequence(
-        acc.data_ptr(), a_len.data_ptr(), n_txn, k, cap, scratch[0].data_ptr(), scratch[1],
-        survive.data_ptr(), bases.data_ptr(), index, stream,
-    )
+    with _fw_lock:
+        scratch = _fw_scratch.get(slot)
+        if scratch is None or scratch[0].shape[0] < cap:
+            scratch = _fw_scratch[slot] = [acc.new_zeros(max(cap, 1), dtype=torch.int64), 0]
+        elif scratch[1] == _EPOCH_MAX:
+            scratch[0].zero_()
+            scratch[1] = 0
+        scratch[1] += 1
+        err = cuda.lib().repro_validate_sequence(
+            acc.data_ptr(), a_len.data_ptr(), n_txn, k, cap, scratch[0].data_ptr(), scratch[1],
+            survive.data_ptr(), bases.data_ptr(), index, stream,
+        )
+        if err != 0:
+            _fw_scratch.pop(slot, None)   # the next call starts on fresh words
     if err != 0:
-        _fw_scratch.pop(slot, None)   # the next call starts on fresh words
         cuda.check(err, "validate_sequence")
     cuda.count_launch("validate_sequence")
     return survive, bases

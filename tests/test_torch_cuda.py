@@ -309,6 +309,114 @@ def test_validate_sequence_refuses_graph_capture(cuda_device):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def test_validate_sequence_two_threads_on_one_stream(cuda_device):
+    """Two host threads launch 200 rounds each on the same (default) stream,
+    rounds with writers and rounds that read the same rows with none: each
+    result equals the plain version, so no round read the other thread's
+    first writers under a shared epoch and no wrap re-zeroed words in use."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import batch_occ
+
+    n_txn, k, cap = 1 << 8, 4, 1 << 12
+    lanes = n_txn * k
+    a_len = _t(np.full(n_txn, k), cuda_device)
+    index = torch.cuda.current_device()
+    slot = (index, cuda.current_stream(index))
+    validate_sequence(_t(np.zeros((6, lanes)), cuda_device), a_len, n_txn, k, cap)
+    batch_occ._fw_scratch[slot][1] = batch_occ._EPOCH_MAX - 150   # both threads cross the wrap
+    failures, done = [], []
+
+    def run(seed):
+        rng = np.random.default_rng(seed)
+        try:
+            for i in range(200):
+                writes = i % 2 == 0
+                acc = np.zeros((6, lanes), np.int32)
+                acc[0] = rng.integers(0, 64, lanes)
+                acc[1] = np.arange(lanes) if writes else np.full(lanes, 1 << 30)
+                acc[2] = writes
+                acc[3] = -1
+                acc[4] = rng.integers(0, 1 << 20, lanes)
+                a = _t(acc, cuda_device)
+                got = validate_sequence(a, a_len, n_txn, k, cap)
+                want = validate_sequence_plain(a, a_len, n_txn, k, cap)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    failures.append((seed, i))
+            done.append(seed)
+        except Exception as e:   # reported by the main thread's assert
+            failures.append((seed, repr(e)))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(s,)) for s in (1, 2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not failures, failures[:5]
+    assert sorted(done) == [1, 2]
+    assert batch_occ._fw_scratch[slot][1] == 400 - 150
+
+
+def test_stepped_serve_equals_direct_batch_at_4096_lane_cuts(cuda_device, tmp_path):
+    """The serving tier's group-commit transparency (P1) on the card: 8,192
+    conflict-free write-only specs arriving 2,048 per step, cut at 4,096
+    lanes (every cut takes the fused round), give the byte-identical log,
+    the same SSNs and the same state as one direct ``execute_batch`` of the
+    same specs on a second stack, and acks in admission order."""
+    from repro_torch.db import TxnSpec
+    from repro_torch.obs import metrics
+    from repro_torch.serve import (ACKED, GroupCommitScheduler, ServeConfig, SingleBackend,
+                                   run_stepped_schedule)
+
+    rng = np.random.default_rng(22)
+    n, per_step = 8192, 2048
+    blob = rng.bytes(n * 100)
+    specs = [TxnSpec(writes=[(ycsb.key_of(i), blob[100 * i:100 * (i + 1)])]) for i in range(n)]
+
+    def stack(tag):
+        cfg = EngineConfig(n_buffers=1, device_kind="null", device_dir=str(tmp_path / tag),
+                           device_clock="virtual", flush_interval=60.0)
+        return SingleBackend.make("kernel", n_workers=2, cfg=cfg, table_capacity=2 * n,
+                                  device="cuda")
+
+    be_s, be_d = stack("serve"), stack("direct")
+    reg = metrics.enable()
+    try:
+        fused0 = reg.counter_value("occ.fused.rounds")
+        # a budget of 2 steps: two steps' arrivals fill each 4,096-txn cut
+        sched = GroupCommitScheduler(be_s, ServeConfig(max_batch=4096, latency_budget_steps=2,
+                                                       queue_capacity=10**6))
+        tickets = run_stepped_schedule(sched, [(i // per_step, s) for i, s in enumerate(specs)])
+        fused_serve = reg.counter_value("occ.fused.rounds") - fused0
+    finally:
+        metrics.disable()
+    assert all(t.status == ACKED for t in tickets)
+    assert [t.ack_seq for t in tickets] == list(range(n))
+    assert sched.stats()["exec_errors"] == 0
+    assert sched.n_cuts == n // 4096 and sched.n_cut_txns == n
+    assert fused_serve == sched.n_cuts
+    res = be_d.occ.execute_batch(specs, max_rounds=1)
+    assert not res.aborted and list(res.committed_idx) == list(range(n))
+    for _ in range(200):
+        be_d.tick()
+        be_d.drain()
+        if all(t.committed for t in res.committed):
+            break
+    assert [t.ssn for t in tickets] == [t.ssn for t in res.committed]
+    assert be_s.table.to_dict() == be_d.table.to_dict()
+    for d in be_s.engine.devices + be_d.engine.devices:
+        d.close()
+    assert [d.read_all() for d in be_s.engine.devices] == \
+        [d.read_all() for d in be_d.engine.devices]
+
+
 def test_kernel_mode_end_to_end_on_the_card(cuda_device, tmp_path):
     """YCSB batches through ``BatchOCC(mode="kernel")`` on the card equal the
     vectorized executor's; the logs recover identically in all three modes,

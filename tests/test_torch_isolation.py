@@ -8,8 +8,9 @@ and its kernel mode never runs quietly on the CPU.
 * With no CUDA device, ``BatchOCC(mode="kernel")``,
   ``recover(mode="kernel")``, ``ShardedEngine()``,
   ``recover_sharded(mode="kernel")``, ``ReplicaApplier``, ``Replica``,
-  ``ShardedReplica``, ``build_model`` and the serve CLI on the default
-  device raise; each of the OLTP ones runs with ``device="cpu"``.
+  ``ShardedReplica``, the serving tier's ``SingleBackend.make()`` and
+  ``ShardedBackend.make()``, ``build_model`` and the serve CLI on the
+  default device raise; each of the OLTP ones runs with ``device="cpu"``.
 * The kernel wrappers pick the kernel or the plain version by the tensor's
   device alone: no environment switch exists.
 """
@@ -62,6 +63,9 @@ def test_fresh_import_leaves_jax_and_reference_out():
         "import repro_torch.models.serve_llm, repro_torch.launch.serve\n"
         "import repro_torch.shard, repro_torch.replica, repro_torch.core.truncate\n"
         "import repro_torch.core.variants, repro_torch.core.levels, repro_torch.db.tpcc\n"
+        "import repro_torch.serve, repro_torch.obs.health, repro_torch.obs.flight\n"
+        "import repro_torch.obs.forensics, repro_torch.trace.dag, repro_torch.trace.sim\n"
+        "import repro_torch.trace.tune\n"
         "from repro_torch.configs.registry import ARCH_NAMES, get_config\n"
         "[get_config(a) for a in ARCH_NAMES]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
@@ -158,6 +162,36 @@ def test_replicas_without_cuda_raise(no_cuda, tmp_path):
     assert rep.promote().data == recover(eng.devices, mode="vectorized").data
     srep = ShardedReplica([eng.devices], device="cpu", parallel=False)
     assert srep.promote().shards[0].data == rep.table.to_dict()
+
+
+def test_serve_backends_without_cuda_raise(no_cuda, tmp_path):
+    from repro_torch.core import EngineConfig
+    from repro_torch.db import TxnSpec
+    from repro_torch.serve import (ACKED, GroupCommitScheduler, ServeConfig, ShardedBackend,
+                                   SingleBackend, run_stepped_schedule)
+
+    cfg = EngineConfig(n_buffers=1, device_kind="null", device_dir=str(tmp_path / "single"),
+                       device_clock="virtual", flush_interval=60.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SingleBackend.make()                               # defaults: kernel, cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SingleBackend.make("kernel", cfg=cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedBackend.make()                              # ShardedConfig: kernel, cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedBackend.make(n_shards=2, device_kind="null", device_dir=str(tmp_path / "x"))
+    with pytest.raises(ValueError, match="mode"):
+        SingleBackend.make("pallas", cfg=cfg, device="cpu")
+    single = SingleBackend.make(cfg=cfg, device="cpu")
+    sharded = ShardedBackend.make(n_shards=2, device="cpu", device_kind="null",
+                                  device_clock="virtual", device_dir=str(tmp_path / "sharded"))
+    assert single.occ.mode == "kernel" and single.occ.device.type == "cpu"
+    assert all(sh.occ.mode == "kernel" and sh.occ.device.type == "cpu" for sh in sharded.eng.shards)
+    for be in (single, sharded):
+        sched = GroupCommitScheduler(be, ServeConfig(max_batch=4))
+        tickets = run_stepped_schedule(
+            sched, [(i // 3, TxnSpec(writes=[(f"user{i}", b"v")])) for i in range(10)])
+        assert [t.status for t in tickets] == [ACKED] * 10
 
 
 def test_llm_entry_points_without_cuda_raise(no_cuda):

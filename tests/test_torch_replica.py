@@ -232,3 +232,51 @@ def test_torn_tail_is_retried_never_decoded(mode, tmp_path):
     assert st == _state(_recover("ref", _reopen("ref", eng.devices), "vectorized"))
     assert st == _state(_recover("port", eng.devices, "scalar"))
     assert all(v != b"TORN-NEVER-COMMITTED" for v, _ in st[0].values())
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_close_against_a_concurrent_read(pkg, tmp_path):
+    """A live shipper reads a device while the primary's handles close (a
+    kill).  The port's ``StorageDevice.close`` takes the device lock, so it
+    waits for a read that is flushing the tail handle; the reference's does
+    not, and the read then flushes a closed file (ROADMAP Queue C)."""
+    import threading
+
+    core = PKG[pkg][0]
+    dev = core.make_devices(1, "ssd", str(tmp_path), "virtual")[0]
+    dev.write(b"0123456789")
+    real, in_flush, release = dev._fh, threading.Event(), threading.Event()
+
+    class _SlowFlush:
+        def flush(self):
+            in_flush.set()
+            release.wait(10)
+            real.flush()
+
+        def close(self):
+            real.close()
+
+    dev._fh = _SlowFlush()
+    out = []
+
+    def _read():
+        try:
+            out.append(dev.read_from(0))
+        except ValueError as e:
+            out.append(e)
+
+    reader = threading.Thread(target=_read)
+    reader.start()
+    assert in_flush.wait(10)
+    closer = threading.Thread(target=dev.close)
+    closer.start()
+    closer.join(0.2)
+    waited = closer.is_alive()
+    release.set()
+    reader.join(10)
+    closer.join(10)
+    if pkg == "port":
+        assert waited and out == [b"0123456789"]
+    else:
+        assert not waited and isinstance(out[0], ValueError), out
+    assert dev._fh is None and dev.read_from(0) == b"0123456789"
