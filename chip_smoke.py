@@ -23,8 +23,12 @@ together), and then:
    zero; ``seg_reduce`` min and max also at 2^19 slots);
    flash attention (hymba's prefill shape, B=8, S=T=2048, 25 query and 5 KV
    heads of 64, full and window 1024, bfloat16 and float32, plus a ragged
-   S=1000 and a bfloat16 full-causal D=128 case with 12 query and 2 KV
-   heads), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
+   S=1000, a bfloat16 full-causal D=128 case with 12 query and 2 KV
+   heads, and tinyllama-1.1b's training shape, 32 query and 4 KV heads,
+   causal, bfloat16 and float32; every case also checks the log-sum-exp
+   output against the plain version, ``o`` bit-identical with and without
+   it, and its cost; the training shape also times the torch-op attention
+   backward and SDPA's), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
    and bfloat16, plus S=1000; with its device operations per call and the
    device ms of each of its three launches) and the chunked wkv6
    recurrence (rwkv6-7b's prefill shape, B=8, H=64, S=2048, K=V=64,
@@ -83,6 +87,17 @@ together), and then:
    none of the others, and profiles one more prefill and 8 decode steps;
 6. checks each serve path at full width in float32 (TF32 off): a prefill
    of 2048 tokens plus 16 decode steps against one prefill of all 2064;
+6a. trains tinyllama-1.1b at full width and depth (``train_path``): a
+   float32 gradient oracle (``_Flash`` against autograd through the plain
+   attention, 1 x 2048 tokens, TF32 off); then, in deterministic mode,
+   bf16 weights, fp32 AdamW moments, 8 x 2048 tokens a step: steps 0-5
+   with the Poplar journal on 4 SSD lanes (step 1 saved and committed,
+   step 3 saved and crashed at once, a torn frame appended), a restore
+   whose every leaf's SHA-256 equals the saved step's, a fresh model
+   resumed to step 5 with losses and final digests equal to the first
+   run's bit for bit, 44 flash launches per step and no other kernel, one
+   profiled step (device ms by group, the card's busy share); prints host
+   RAM and free disk first and one ``train_path`` JSON line;
 7. asserts that every kernel launched on its own path (each path's counts
    set to 0 just before it and read just after);
 8. prints throughput, recovery and serving times beside the card's name and
@@ -96,8 +111,10 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import os
 import platform
@@ -111,6 +128,9 @@ import threading
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+# cuBLAS reads this when it starts: the training phase's deterministic mode
+# needs it set before any product runs on the card
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import torch
@@ -151,8 +171,16 @@ from repro_torch.kernels import scatter_max
 from repro_torch.kernels.scatter_max import NO_POS, ssn_scatter_max, ssn_scatter_max_plain
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
 from repro_torch.configs.registry import get_config
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.journal import PoplarCheckpointManager, restore_latest, to_pytree
+from repro_torch.models import attention as attention_mod
+from repro_torch.models import lm as lm_mod
 from repro_torch.models.api import build_model
 from repro_torch.models.serve_llm import ServeEngine
+from repro_torch.models.weights import load_reference, to_reference
+from repro_torch.optim import adamw
+from repro_torch.train.step import make_train_step
+from repro_torch.tree import keystr_items, tree_leaves, tree_map
 from repro_torch.obs import metrics
 from repro_torch.obs.flight import FlightRecorder
 from repro_torch.obs.forensics import RULE_REPLAYED, RULE_TORN_TAIL, explain_recovery, explain_recovery_sharded
@@ -254,6 +282,24 @@ LLM_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (2e-4, 2e-4)}
 # The same limit holds for rwkv6-7b, whose layer-normed logits are of the
 # same scale: measured 3.5e-4 with logits up to 4.45.
 ORACLE_TOL = 1e-3
+# the training phase: tinyllama-1.1b (arXiv:2401.02385 / the Hugging Face
+# config) at full width and depth, bf16 parameters, fp32 AdamW moments,
+# batches of 8 x 2048 tokens; run A trains steps 0-5, journals steps 1
+# (committed) and 3 (crashed right after its save), the restore picks one of
+# them and a fresh model resumes to step 5
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+TRAIN_STEPS = 6
+TRAIN_SAVES = (1, 3)
+TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 1e-3, 10, 100    # the train CLI's schedule
+# four SSD lanes; 22 slices and 64-MiB buffers: the largest record, a slice
+# of w_gate's fp32 moment (22 x 2048 x 5632 x 4 B / 22), is 46.1 MB, and a
+# record larger than a buffer raises
+JOURNAL_LANES, JOURNAL_SLICES, JOURNAL_BUFFER = 4, 22, 64 << 20
+# the full-width float32 gradient oracle: _Flash (the kernel's forward and
+# the torch-op backward) against autograd through the plain attention, each
+# leaf's gradient within this share of its largest magnitude
+TRAIN_ORACLE_TOL = 1e-4
 # the executing thread's stages of one BatchOCC call (trace/span.py)
 BATCH_STAGES = (tspan.ST_VALIDATE, tspan.ST_SEQUENCE, tspan.ST_ENCODE,
                 tspan.ST_PUBLISH, tspan.ST_WRITEBACK)
@@ -608,15 +654,33 @@ def _attn_pairs(s: int, t: int, window) -> int:
     return int(n.sum())
 
 
-def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64):
+def _flash_train_timings(q, k, v, out, lse):
+    """The training shape's backward, timed only: the torch-op backward
+    (``_flash_bwd``) against SDPA's (``is_causal``), on the same inputs and
+    one seeded output gradient."""
+    gen = torch.Generator(device=q.device).manual_seed(1)
+    do = torch.randn(out.shape, generator=gen, device=q.device).to(out.dtype)
+    qs, ks, vs, os_, dos = (x.transpose(1, 2) for x in (q, k, v, out, do))   # (B, S, H, D)
+    bwd_ms = _median_ms(lambda: attention_mod._flash_bwd(qs, ks, vs, os_, lse, dos, True, None, None),
+                        reps=5, warmup=1)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    ref = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    sdpa_bwd_ms = _median_ms(lambda: torch.autograd.grad(ref, leaves, do, retain_graph=True))
+    return dict(bwd_ms=bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms)
+
+
+def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64, train=False):
     # the model's (B, S, H, D) activations, handed over as (B, H, S, D) views
     q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
     k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
     v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
     got = flash_attention_fwd(q, k, v, window=window)
+    with_lse, lse = flash_attention_fwd(q, k, v, window=window, return_lse=True)
     torch.cuda.synchronize()
-    want = flash_attention_plain(q, k, v, window=window)
+    assert torch.equal(with_lse, got), "flash_attention: o differs when lse is asked for"
+    want, want_lse = flash_attention_plain(q, k, v, window=window, return_lse=True)
     err = _close(got, want, dtype)
+    lse_err = _close(lse, want_lse, torch.float32)
     esz = q.element_size()
     nbytes = esz * (2 * b * hq * s * d + 2 * b * hkv * s * d)
     flops = 4 * d * b * hq * _attn_pairs(s, s, window)
@@ -627,10 +691,15 @@ def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64):
         pos = torch.arange(s, device=dev)
         mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    extra = _flash_train_timings(q, k, v, with_lse, lse) if train else {}
     return dict(
-        name="flash_attention", max_abs_err=err, tol=LLM_TOL[dtype],
+        name="flash_attention", max_abs_err=err, tol=LLM_TOL[dtype], lse_max_abs_err=lse_err,
         shape=f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} window={window} {str(dtype)[6:]}",
         ms=_median_ms(lambda: flash_attention_fwd(q, k, v, window=window)),
+        lse_ms=_median_ms(lambda: flash_attention_fwd(q, k, v, window=window, return_lse=True)),
+        lse_device_ms=_per_call_device_ms(
+            lambda: flash_attention_fwd(q, k, v, window=window, return_lse=True), 5),
+        **extra,
         device_ms=_per_call_device_ms(lambda: flash_attention_fwd(q, k, v, window=window), 5),
         plain_ms=_median_ms(lambda: flash_attention_plain(q, k, v, window=window), reps=5),
         bound=_bound(nbytes, flops, peak), library_ms=_median_ms(lib),
@@ -738,6 +807,11 @@ def check_llm_kernels(seed: int):
     cases.append(_flash_case(gen, RAGGED_BATCH, RAGGED_PROMPT, 1024, torch.bfloat16, dev))
     # qwen2-1.5b's heads (12 query / 2 KV of 128): the kernel's D = 128 path
     cases.append(_flash_case(gen, b, s, None, torch.bfloat16, dev, hq=12, hkv=2, d=128))
+    # tinyllama-1.1b's training shape (32 query / 4 KV heads of 64, causal),
+    # with the backward's timings in bfloat16
+    for dt in (torch.bfloat16, torch.float32):
+        cases.append(_flash_case(gen, TRAIN_BATCH, TRAIN_SEQ, None, dt, dev, hq=32, hkv=4, d=64,
+                                 train=dt == torch.bfloat16))
     cases.append(_ssm_case(gen, b, s, torch.float32, dev))
     cases.append(_ssm_case(gen, b, s, torch.bfloat16, dev))
     cases.append(_ssm_case(gen, RAGGED_BATCH, RAGGED_PROMPT, torch.float32, dev))
@@ -2121,6 +2195,363 @@ def run_oracle(model, prompt, generated):
     return err, scale
 
 
+# --- phase 6: training with the Poplar journal --------------------------------
+
+def _host_ram_gib() -> dict:
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                info[key] = int(val.split()[0]) / 2**20
+    return info
+
+
+def _leaf_digest(t: torch.Tensor) -> str:
+    """SHA-256 of a leaf's dtype, shape and bytes, as the journal records
+    them (bfloat16 as its raw 2-byte words)."""
+    t = torch.from_numpy(np.asarray(t)) if isinstance(t, np.ndarray) else t
+    t = t.detach().to("cpu").contiguous()
+    raw = (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+    h = hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode())
+    h.update(raw.reshape(-1).view(np.uint8))
+    return h.hexdigest()
+
+
+def _digests(tree) -> dict:
+    """``{keystr path: digest}`` of every leaf, eight leaves at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    items = list(keystr_items(tree))
+    with ThreadPoolExecutor(8) as pool:
+        return dict(zip([k for k, _ in items], pool.map(_leaf_digest, [v for _, v in items])))
+
+
+def _plain_attend(q, k, v, *, causal=True, window=None, logit_softcap=None):
+    """Attention through autograd over the plain version (the oracle's
+    other side; the package has no such switch)."""
+    out = flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                causal=causal, window=window, softcap=logit_softcap)
+    return out.transpose(1, 2)
+
+
+def _train_batch(pipe, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+
+
+def run_grad_oracle(cfg, seed: int, dev) -> dict:
+    """Full width in float32, TF32 off: one ``train_loss`` and backward on a
+    1 x 2048 batch through ``_Flash`` against the same with attention
+    through autograd over ``flash_attention_plain``; returns the loss
+    difference and the largest leaf error relative to its largest |g|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    model.init(torch.Generator(device=dev).manual_seed(seed + 1))
+    params = to_reference(model, device=dev)
+    batch = _train_batch(TokenPipeline(DataConfig(vocab=cfg.vocab, batch=1, seq_len=TRAIN_SEQ,
+                                                  seed=seed)), dev)
+    sides = {}
+    for name in ("flash", "plain"):
+        if name == "plain":
+            lm_mod.attend = _plain_attend
+        try:
+            live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+            n0 = kcuda.LAUNCHES["flash_attention"]
+            loss = model.train_loss(live, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+            sides[name] = (float(loss.detach()), grads, kcuda.LAUNCHES["flash_attention"] - n0)
+        finally:
+            lm_mod.attend = attention_mod.attend
+    (loss_f, g_f, n_f), (loss_p, g_p, n_p) = sides["flash"], sides["plain"]
+    assert n_f == 2 * cfg.n_layers and n_p == 0, (n_f, n_p)
+    worst, worst_key = 0.0, None
+    for (key, _), a, b in zip(keystr_items(params), g_f, g_p):
+        assert torch.isfinite(a).all(), key
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_key = rel, key
+    loss_rel = abs(loss_f - loss_p) / abs(loss_p)
+    assert worst <= TRAIN_ORACLE_TOL and loss_rel <= TRAIN_ORACLE_TOL, (worst, worst_key, loss_rel)
+    del sides, g_f, g_p, params, model
+    torch.cuda.empty_cache()
+    return dict(loss=loss_f, loss_plain=loss_p, loss_rel_err=loss_rel, grad_rel_err=worst,
+                grad_rel_err_leaf=worst_key, tol=TRAIN_ORACLE_TOL)
+
+
+class _Annotated:
+    """Wrap the attention backward and the optimizer update in profiler
+    ranges for one profiled step, and put them back after."""
+
+    def __enter__(self):
+        from repro_torch.optim import adamw as adamw_mod
+        from torch.profiler import record_function
+
+        self._bwd, self._upd = attention_mod._flash_bwd, adamw_mod.update
+
+        def bwd(*a, **kw):
+            with record_function("train.attn_bwd"):
+                return self._bwd(*a, **kw)
+
+        def upd(*a, **kw):
+            with record_function("train.optimizer"):
+                return self._upd(*a, **kw)
+
+        attention_mod._flash_bwd, adamw_mod.update = bwd, upd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.optim import adamw as adamw_mod
+
+        attention_mod._flash_bwd, adamw_mod.update = self._bwd, self._upd
+
+
+def _kernels_under(events, name):
+    """Device kernels launched inside every profiler range ``name``."""
+    out = []
+
+    def walk(e):
+        out.extend(e.kernels)
+        for ch in e.cpu_children:
+            walk(ch)
+
+    for e in events:
+        if e.name == name:
+            walk(e)
+    return out
+
+
+def profile_train_step(step_fn, params, opt, batch) -> dict:
+    """One train step under the CUDA profiler: device ms by group (the
+    flash forward kernel, the torch-op attention backward, GEMMs outside
+    it, the optimizer, the rest) and the card's busy share of the step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gemm = lambda n: any(tag in n.lower() for tag in ("gemm", "nvjet", "cutlass", "gemv"))
+    torch.cuda.synchronize()
+    with _Annotated(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    # the ranges' own spans on the device timeline are not work: leave them out
+    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.name.startswith("train.")]
+    total = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    flash = sum(e.time_range.elapsed_us() for e in device if "flash_fwd" in e.name) / 1e3
+    gemm_all = sum(e.time_range.elapsed_us() for e in device if gemm(e.name)) / 1e3
+    attn = _kernels_under(events, "train.attn_bwd")
+    opt_k = _kernels_under(events, "train.optimizer")
+    attn_ms = sum(k.duration for k in attn) / 1e3
+    opt_ms = sum(k.duration for k in opt_k) / 1e3
+    gemm_in = sum(k.duration for k in attn + opt_k if gemm(k.name)) / 1e3
+    groups = {"flash_forward": flash, "attention_backward": attn_ms, "gemm": gemm_all - gemm_in,
+              "optimizer": opt_ms}
+    groups["other"] = total - sum(groups.values())
+    top = sorted(((e.name[:90], e.time_range.elapsed_us() / 1e3) for e in device),
+                 key=lambda kv: -kv[1])
+    agg = {}
+    for name, ms in top:
+        agg[name] = agg.get(name, 0.0) + ms
+    return out, dict(device_ms=groups, device_total_ms=total, wall_ms=wall * 1e3,
+                     busy=total / (wall * 1e3), attention_backward_gemm_ms=gemm_in,
+                     top=sorted(agg.items(), key=lambda kv: -kv[1])[:8])
+
+
+def _journal_sizing(cfg, workdir) -> tuple:
+    """The layers that (b)-(d) can journal within this host's RAM and
+    disk: a save's state bytes at full depth against the free memory (a
+    restore holds about three saves' bytes: the lanes, the decoded values
+    and the joined state) and the free disk (one committed save, plus the
+    crashed one's start)."""
+    ram = _host_ram_gib()
+    disk = shutil.disk_usage(workdir).free / 2**30
+    per_param = 2 + 4 + 4                    # bf16 weights, fp32 mu and nu
+    full = cfg.n_params() * per_param / 2**30
+    fits = lambda gib: 3.5 * gib <= ram["MemAvailable"] and 2.5 * gib <= disk
+    layers, reading = cfg.n_layers, None
+    if not fits(full):
+        per_layer = (cfg.n_params() - cfg.vocab * cfg.d_model * 2) * per_param / cfg.n_layers / 2**30
+        top = cfg.vocab * cfg.d_model * 2 * per_param / 2**30
+        while layers > 1 and not fits(top + layers * per_layer):
+            layers -= 1
+        reading = (f"host RAM available {ram['MemAvailable']:.1f} GiB and free disk {disk:.1f} GiB "
+                   f"against a full-depth save of {full:.1f} GiB")
+    return ram, disk, full, layers, reading
+
+
+def run_train_path(workdir: str, seed: int, smi: str, dev=torch.device("cuda")) -> dict:
+    """tinyllama-1.1b training with the Poplar journal: (a) the float32
+    gradient oracle; (b) run A, steps 0-5, saves at 1 (committed) and 3
+    (crashed right after ``save`` returned, a torn frame appended); (c)
+    restore, every leaf's digest equal to the saved step's; (d) a fresh
+    model resumed to step 5, losses and final digests equal to run A's bit
+    for bit; (e) 44 flash launches per step and one profiled step."""
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    kcuda.reset_launches()
+    ram, disk, full_gib, layers, reading = _journal_sizing(cfg, workdir)
+    print(f"train_path: host RAM {ram['MemTotal']:.1f} GiB ({ram['MemAvailable']:.1f} available), "
+          f"free disk under the work directory {disk:.1f} GiB; a full-depth save "
+          f"{full_gib:.2f} GiB; journaled depth {layers} of {cfg.n_layers}")
+    reduced = ["steps: 6 of a real run's thousands (run A) and the resume from the restored step",
+               "data: the synthetic TokenPipeline stream; weights: random from the seed"]
+    out = {"arch": cfg.name, "host_ram_gib": ram, "free_disk_gib": disk}
+
+    # (a) the gradient oracle, full width and depth in float32
+    t0 = time.perf_counter()
+    out["oracle"] = run_grad_oracle(cfg, seed, dev)
+    out["oracle"]["seconds"] = time.perf_counter() - t0
+    print(f"train_path oracle (full width, float32, TF32 off, 1 x {TRAIN_SEQ}): loss "
+          f"{out['oracle']['loss']:.6f} vs {out['oracle']['loss_plain']:.6f}, largest leaf "
+          f"gradient error {out['oracle']['grad_rel_err']:.3g} of its max |g| "
+          f"({out['oracle']['grad_rel_err_leaf']}; tol {TRAIN_ORACLE_TOL})")
+
+    if layers != cfg.n_layers:
+        reduced.append(f"depth for (b)-(d): {layers} of {cfg.n_layers} layers, forced by {reading}")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    # deterministic algorithms for run A and the resume; filling each new
+    # allocation with NaN (a debugging aid that mode turns on) is left off:
+    # every kernel here writes all of its output
+    torch.use_deterministic_algorithms(True)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+        model.init(torch.Generator(device=dev).manual_seed(seed))
+        params = to_reference(model, device=dev)
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+        opt = adamw.init(params, opt_cfg)
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves({"p": params, "o": opt}))
+        data_cfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
+        pipe = TokenPipeline(data_cfg)
+        step_fn = make_train_step(model, opt_cfg)
+        jdir = os.path.join(workdir, "journal")
+        mgr = PoplarCheckpointManager(jdir, n_lanes=JOURNAL_LANES, n_slices=JOURNAL_SLICES,
+                                      buffer_capacity=JOURNAL_BUFFER)
+        print(f"train_path run A: {cfg.name} {n_params:,} parameters, {cfg.n_layers} layers, "
+              f"bf16 weights, fp32 moments; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; journal "
+              f"{JOURNAL_LANES} SSD lanes, {JOURNAL_SLICES} slices, buffer "
+              f"{JOURNAL_BUFFER >> 20} MiB; a save holds {state_bytes / 1e9:.3f} GB")
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s, saved, journal = [], [], {}, {}
+        for step in range(TRAIN_STEPS):
+            batch = _train_batch(pipe, dev)
+            before = dict(kcuda.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            launched = _delta(dict(kcuda.LAUNCHES), before)
+            assert launched["flash_attention"] == 2 * cfg.n_layers, launched
+            assert all(n == 0 for k, n in launched.items() if k != "flash_attention"), launched
+            assert np.isfinite(losses[-1]), losses
+            print(f"train_path step {step}: loss {losses[-1]:.6f}, {step_s[-1] * 1e3:.1f} ms "
+                  f"| {smi}", flush=True)
+            if step in TRAIN_SAVES:
+                state = {"params": params, "opt": opt, "data": pipe.state()}
+                t0 = time.perf_counter()
+                handle = mgr.save(step, state, {"loss": losses[-1]})
+                t_flat = time.perf_counter() - t0
+                saved[step] = _digests(state)
+                row = {"flatten_s": t_flat}
+                if step == TRAIN_SAVES[0]:
+                    t0 = time.perf_counter()
+                    handle.wait(timeout=900)
+                    row["log_s"] = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    mgr.wait_for_commit(step, timeout=900)
+                    row["commit_wait_s"] = time.perf_counter() - t0
+                    assert mgr.last_committed_step() == step
+                else:
+                    mgr.crash()      # as soon as save returned: the step's logging is cut
+                    with open(os.path.join(jdir, "log_0.bin"), "ab") as f:
+                        f.write(_torn_record())
+                journal[step] = row
+                print(f"train_path save {step}: {row} | {smi}", flush=True)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        final_a = _digests({"params": params, "opt": opt})
+        lane_bytes = sum(os.path.getsize(os.path.join(jdir, f)) for f in os.listdir(jdir)
+                         if f.startswith("log_"))
+        del params, opt, metrics, state, model, step_fn
+        torch.cuda.empty_cache()
+
+        # (c) restore
+        t0 = time.perf_counter()
+        restored = restore_latest(jdir)
+        restore_s = time.perf_counter() - t0
+        assert restored is not None, "nothing restorable"
+        rstep, flat, meta = restored
+        assert rstep in TRAIN_SAVES, rstep
+        got = {k: _leaf_digest(v) for k, v in flat.items()}
+        assert got == saved[rstep], sorted(k for k in got if got[k] != saved[rstep].get(k))
+        assert meta["loss"] == losses[rstep] and meta["step"] == rstep, (meta, losses)
+        print(f"train_path restore: step {rstep} in {restore_s:.2f} s from {lane_bytes:,} lane "
+              f"bytes; all {len(got)} leaves' digests equal the saved step's | {smi}", flush=True)
+
+        # (d) resume a fresh model from the restored state
+        model_b = build_model(cfg, device=dev, dtype=torch.bfloat16)
+        specs = model_b.param_specs()
+        like = {"params": specs, "opt": adamw.opt_state_specs(specs, opt_cfg),
+                "data": TokenPipeline(data_cfg).state()}
+        tree = to_pytree(flat, like)
+        load_reference(model_b, tree["params"])
+        params_b = to_reference(model_b, device=dev)
+        opt_b = tree_map(lambda t: t.to(dev), tree["opt"])
+        pipe_b = TokenPipeline.restore(data_cfg, {k: v.numpy() for k, v in tree["data"].items()})
+        assert pipe_b.cursor == rstep + 1, pipe_b.cursor
+        del restored, flat, tree
+        step_b = make_train_step(model_b, opt_cfg)
+        losses_b = []
+        for step in range(rstep + 1, TRAIN_STEPS):
+            before = dict(kcuda.LAUNCHES)
+            params_b, opt_b, metrics = step_b(params_b, opt_b, _train_batch(pipe_b, dev))
+            losses_b.append(float(metrics["loss"]))
+            assert kcuda.LAUNCHES["flash_attention"] - before["flash_attention"] == 2 * cfg.n_layers
+        assert losses_b == losses[rstep + 1:], (losses_b, losses)
+        final_b = _digests({"params": params_b, "opt": opt_b})
+        assert final_b == final_a, sorted(k for k in final_b if final_b[k] != final_a[k])
+        print(f"train_path resume from step {rstep}: losses {losses_b} equal run A's bit for bit; "
+              f"final parameter and optimizer digests equal | {smi}", flush=True)
+
+        # (e) one profiled step
+        _, prof = profile_train_step(step_b, params_b, opt_b, _train_batch(pipe_b, dev))
+        launches = dict(kcuda.LAUNCHES)
+        n_steps = TRAIN_STEPS + (TRAIN_STEPS - rstep - 1) + 1     # run A, the resume, the profiled
+        want = 2 * get_config(TRAIN_ARCH).n_layers + 2 * cfg.n_layers * n_steps   # with the oracle
+        assert launches["flash_attention"] == want, (launches, want)
+        assert all(n == 0 for k, n in launches.items() if k != "flash_attention"), launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = float(np.median(step_s[2:])) * 1e3
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn_flops = 12 * cfg.n_layers * cfg.n_heads * cfg.hd * pairs * TRAIN_BATCH
+    flops = 6 * n_params * tokens + attn_flops
+    formula = (f"(6 N tokens + 12 L Hq D pairs B) / step = (6 x {n_params:,} x {tokens:,} + 12 x "
+               f"{cfg.n_layers} x {cfg.n_heads} x {cfg.hd} x {pairs:,} x {TRAIN_BATCH}) / step")
+    out.update(
+        n_params=n_params, layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        losses=losses, step_ms_each=[t * 1e3 for t in step_s], step_ms=step_ms,
+        tokens_per_s=tokens / (step_ms / 1e3), model_flops_per_step=flops,
+        flop_rate=flops / (step_ms / 1e3), mfu=flops / (step_ms / 1e3) / BF16_FLOPS,
+        flop_formula=formula, profile=prof, journal=journal, state_bytes=state_bytes,
+        lane_bytes=lane_bytes, restore_s=restore_s, restored_step=rstep,
+        resumed_losses=losses_b, launches_per_step={"flash_attention": 2 * cfg.n_layers},
+        launches=launches, reduced=reduced, seconds=time.perf_counter() - t_phase)
+    print(f"train_path: step {step_ms:.1f} ms (median of steps 2-5), {out['tokens_per_s']:,.0f} "
+          f"tok/s, {out['flop_rate'] / 1e12:.1f} TFLOP/s = {100 * out['mfu']:.1f}% of 989 "
+          f"({formula}); busy {100 * prof['busy']:.1f}% of the profiled step; device ms "
+          f"{prof['device_ms']}; peak {out['peak_gib']:.1f} GiB | {smi}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2160,6 +2591,10 @@ def main(argv=None) -> int:
     for k in llm_cases:
         print(f"kernel {k['name']} ({k['shape']}): max abs err {k['max_abs_err']:.3g} "
               f"(atol {k['tol'][0]}, rtol {k['tol'][1]}); {k['ms']:.4f} ms (device {k['device_ms']} ms"
+              + (f"; with lse {k['lse_ms']:.4f} ms (device {k['lse_device_ms']} ms), lse max abs err "
+                 f"{k['lse_max_abs_err']:.3g}, o bit-identical" if "lse_ms" in k else "")
+              + (f"; backward: torch ops {k['bwd_ms']:.3f} ms, SDPA {k['sdpa_bwd_ms']:.3f} ms"
+                 if "bwd_ms" in k else "")
               + (f", {k['device_ops_per_call']} device ops per call: {k['phase_device_ms']}"
                  if "phase_device_ms" in k else "") + "), plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound'][0]:.4f} ms ({k['bound'][1]})"
@@ -2242,6 +2677,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         serve["allocated_gib_after_free"] = torch.cuda.memory_allocated() / 2**30
         print("serve_path " + json.dumps(serve, default=float))
+
+    # training with the Poplar journal, with its own counts
+    workdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        train = run_train_path(workdir, args.seed, smi)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    assert train["launches"]["flash_attention"] > 0, "flash_attention never launched on train_path"
+    print("train_path " + json.dumps(train, default=float))
 
     line = []
     main_cases = {name: next(k for k in llm_cases if k["name"] == name) for name in LLM_KERNELS}

@@ -14,6 +14,10 @@
 // with a contiguous head dim, so the model's (B, S, H, D) tensors go in as
 // (B, H, S, D) views, and both skip the KV tiles past a query tile's causal
 // frontier or wholly before its window (the TPU kernel's pl.when skip).
+// Given a non-null lse pointer, both also write each row's natural-log
+// log-sum-exp in their epilogue, one float per row: the softmax statistics
+// from which the training backward (repro_torch.models.attention._Flash)
+// recomputes P. With a null pointer nothing else changes.
 //
 // Bound: operations, 4*D flops per unmasked (query, key) pair, against bytes
 // that read q, k, v and write o once.
@@ -76,6 +80,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;      // (B, Hq, S) contiguous, or null: no log-sum-exp
   long long b, hq, hkv, s, t;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
   int causal;
@@ -203,6 +208,8 @@ flash_fwd_kernel(const FlashArgs a) {
         op[(i * G + g) * 4 + c] = acc[i * 4 + c] / den;
       }
     }
+    // q was scaled on load, so m is in units of the scaled scores
+    if (a.lse != nullptr && g == 0) a.lse[(bi * a.hq + hi) * a.s + qpos] = m + logf(den);
   }
 }
 
@@ -228,6 +235,7 @@ constexpr int kConsumerRegs = 232;
 constexpr int kMaxSmem = 232448;   // a block's shared memory on sm_90
 
 struct WgmmaArgs {
+  float* lse;        // (B, Hq, S) contiguous, or null: no log-sum-exp
   int s, t, b, hq, hkv, n_qt, n_items;
   int causal;
   int window;        // <= 0: no window
@@ -766,6 +774,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (a.lse != nullptr && lane % 4 == 0) {
+      // m is in units of the unscaled scores and l sums exp(scale (s - m)):
+      // the natural log-sum-exp of the scaled row is scale * m + log(l)
+      float* lp = a.lse + (static_cast<long long>(it.bi) * a.hq + it.hi) * a.s;
+      if (q0 + r0 < a.s) lp[q0 + r0] = m0 * a.scale + logf(fmaxf(l0, 1e-30f));
+      if (q0 + r0 + 8 < a.s) lp[q0 + r0 + 8] = m1 * a.scale + logf(fmaxf(l1, 1e-30f));
+    }
     if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     named_sync_wg(3 + c);                 // the previous item's store has read the stage
 #pragma unroll
@@ -865,6 +880,7 @@ int launch_bf16(const FlashArgs& f, cudaStream_t st) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   WgmmaArgs a;
+  a.lse = f.lse;
   a.s = static_cast<int>(f.s); a.t = static_cast<int>(f.t); a.b = static_cast<int>(f.b);
   a.hq = static_cast<int>(f.hq); a.hkv = static_cast<int>(f.hkv);
   a.n_qt = static_cast<int>(n_qt); a.n_items = static_cast<int>(n_items);
@@ -881,19 +897,22 @@ int launch_bf16(const FlashArgs& f, cudaStream_t st) {
 }  // namespace
 
 // meta: b, hq, hkv, s, t, then the (batch, head, position) strides in
-// elements of q, k, v and o. dtype: 0 float32, 1 bfloat16. Returns
+// elements of q, k, v and o. lse: null, or a contiguous float32 (B, Hq, S)
+// that receives each row's natural-log log-sum-exp of its scaled, softcapped
+// and masked scores (the softmax statistics a backward recomputes P from).
+// dtype: 0 float32, 1 bfloat16. Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a head dim other than 64
 // or 128, an unknown dtype, or bf16 tensors whose TMA maps cannot be encoded
 // (base pointers must be 16-B aligned, strides multiples of 16 B).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
-                                     void* o, const long long* meta, int dtype,
+                                     void* o, float* lse, const long long* meta, int dtype,
                                      int head_dim, int causal, int window,
                                      float softcap, float scale, int device,
                                      void* stream) {
   DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
   FlashArgs a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
   a.b = meta[0]; a.hq = meta[1]; a.hkv = meta[2]; a.s = meta[3]; a.t = meta[4];
   a.qsb = meta[5]; a.qsh = meta[6]; a.qss = meta[7];
   a.ksb = meta[8]; a.ksh = meta[9]; a.kss = meta[10];

@@ -74,6 +74,19 @@ def count_launch(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and one of ``tensors``
+    requires a gradient.  A wrapper fills its outputs through ctypes, so on
+    the card they carry no ``grad_fn`` and a backward through them would
+    silently drop every gradient before the call; the wrappers refuse such
+    inputs on both devices alike."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the kernel has no backward; call it under "
+                           f"torch.no_grad() or on detached inputs")
+
+
 def reset_launches() -> None:
     with _count_lock:
         for name in LAUNCHES:
@@ -161,7 +174,7 @@ def lib() -> ctypes.CDLL:
             dll.repro_validate_sequence.restype = i
             meta = ctypes.POINTER(ll)
             f = ctypes.c_float
-            dll.repro_flash_attention.argtypes = [p, p, p, p, meta, i, i, i, i, f, f, i, p]
+            dll.repro_flash_attention.argtypes = [p, p, p, p, p, meta, i, i, i, i, f, f, i, p]
             dll.repro_flash_attention.restype = i
             dll.repro_ssm_scan_chunked.argtypes = [p, p, p, p, p, p, p, p, meta, i, i, p]
             dll.repro_ssm_scan_chunked.restype = i

@@ -7,6 +7,15 @@ an optional tanh softcap: the function of the reference's Pallas kernel
 softmax and the accumulation are float32 whatever the input type; the
 output has q's type.
 
+``return_lse=True`` also returns each row's float32 natural-log
+log-sum-exp of its scaled, softcapped and masked scores, ``(B, Hq, S)``:
+the statistics from which the training backward
+(``repro_torch.models.attention._Flash``) recomputes the probabilities.
+
+The kernel has no backward of its own: the wrapper refuses, on either
+device, inputs that require a gradient while grad mode is on (its output
+would carry none); ``_Flash`` calls it on detached inputs.
+
 On a CUDA tensor it launches the hand-written kernel
 (``csrc/flash_attention.cu``: D of 64 or 128, any S and T; bfloat16 on the
 tensor cores with TMA loads, float32 on the CUDA cores); on a CPU tensor
@@ -69,10 +78,12 @@ def flash_attention_plain(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain PyTorch attention: the whole ``(S, T)`` score matrix in
     float32, masked to -1e30, softmax, then ``p @ v`` (``ref.py::
-    attention_ref``)."""
+    attention_ref``); with ``return_lse``, also ``logsumexp`` of the masked
+    scores."""
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -84,7 +95,10 @@ def flash_attention_plain(
     mask = _mask(s, t, causal, window, q.device)
     scores = scores.masked_fill(~mask[None, None], NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhst,bhtd->bhsd", p, vr).to(q.dtype)
+    out = torch.einsum("bhst,bhtd->bhsd", p, vr).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1)
+    return out
 
 
 def flash_attention_fwd(
@@ -95,8 +109,11 @@ def flash_attention_fwd(
     causal: bool = True,
     window: Optional[int] = None,
     softcap: Optional[float] = None,
-) -> torch.Tensor:
-    """Attention forward; returns ``(B, Hq, S, D)`` in q's dtype."""
+    return_lse: bool = False,
+):
+    """Attention forward; returns ``(B, Hq, S, D)`` in q's dtype, and with
+    ``return_lse`` also the ``(B, Hq, S)`` float32 log-sum-exp."""
+    cuda.refuse_grad("flash_attention", q, k, v)
     b, hq, s, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
@@ -108,7 +125,8 @@ def flash_attention_fwd(
     if k.device != dev or v.device != dev:
         raise ValueError("flash_attention: q, k and v on different devices")
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
+        return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap,
+                                     return_lse=return_lse)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -126,6 +144,7 @@ def flash_attention_fwd(
     out = torch.empty_like(q)
     if out.stride(3) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev) if return_lse else None
     if q.dtype == torch.bfloat16:
         check_tma_layout(q=q, k=k, v=v)
     t = k.shape[2]
@@ -137,10 +156,11 @@ def flash_attention_fwd(
         out.stride(0), out.stride(1), out.stride(2),
     )
     err = cuda.lib().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), meta,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), meta,
         _DTYPES[q.dtype], d, int(causal), int(window or 0),
         float(softcap or 0.0), 1.0 / math.sqrt(d), dev.index, cuda.current_stream(dev.index),
     )
     cuda.check(err, "flash_attention")
     cuda.count_launch("flash_attention")
-    return out
+    return (out, lse) if return_lse else out

@@ -100,6 +100,7 @@ def rwkv6_chunked(
     u: torch.Tensor,       # (H, K)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(y (B, H, S, V), final state (B, H, K, V))``."""
+    cuda.refuse_grad("rwkv6_chunked", r, k, v, w, u)
     b, h, s, kd = r.shape
     vd = v.shape[-1]
     if k.shape != r.shape or w.shape != r.shape or v.shape != (b, h, s, vd):

@@ -96,6 +96,7 @@ def ssm_scan_chunked(
     cmat: torch.Tensor,    # (B, S, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(y (B, H, S, P), final state (B, H, P, N))``."""
+    cuda.refuse_grad("ssm_scan_chunked", x, dt, decay, bmat, cmat)
     b, h, s, p = x.shape
     n = bmat.shape[-1]
     if dt.shape != (b, h, s) or decay.shape != (b, h, s):

@@ -3,19 +3,26 @@
 
     param_specs()                  -> ParamSpec tree (the reference's layout)
     init(generator)                -> fills the parameters, returns the model
+    train_loss(params, batch)      -> float32 scalar loss
+    trainable(flag)                -> the model's own parameters require grad
     prefill(batch, cache_len)      -> (last_logits, caches)
     decode_step(caches, tokens, pos) -> (logits, caches)
     cache_specs(batch, cache_len)  -> ParamSpec tree for decode caches
 
 The parameters live in the model's modules (``model.lm``), not in a tree
-passed to every call as in the reference.  ``device`` defaults to
+passed to every call as in the reference.  ``train_loss`` takes either
+such a tree (the reference's layout, as
+:func:`~repro_torch.models.weights.to_reference` gives it, on the model's
+device: what the train step differentiates) or ``None`` for the model's own
+parameters, which :meth:`Model.trainable` lets take gradients.  ``device`` defaults to
 ``"cuda"``: without a card the model must be built with ``device="cpu"``,
 or building raises.  ``dtype`` is the type of every weight the reference
 declares as bfloat16 (the default); ``torch.float32`` makes every
 parameter float32.
 
 Families ported so far: ``dense``, ``hybrid`` (hymba) and ``rwkv``
-(rwkv6).  The ``moe``, ``enc_dec`` (whisper) and ``vlm`` (llava) families
+(rwkv6); only ``dense`` trains (the others' ``train_loss`` raises
+``NotImplementedError``: their kernels have no backward yet).  The ``moe``, ``enc_dec`` (whisper) and ``vlm`` (llava) families
 raise ``NotImplementedError``.
 """
 
@@ -54,9 +61,19 @@ class Model:
     def cast(self, dtype: torch.dtype) -> "Model":
         """A copy of this model whose bfloat16-declared weights are held in
         ``dtype`` (float32: every parameter float32)."""
-        other = build_model(self.cfg, device=self.device, dtype=dtype)
+        other = build_model(self.cfg, device=self.device, dtype=dtype,
+                            remat_policy=self.lm.remat_policy)
         other.lm.load_state_dict(self.lm.state_dict())
         return other
+
+    def trainable(self, flag: bool = True) -> "Model":
+        """Let the model's own parameters take gradients (they are built
+        with ``requires_grad=False``: serving never needs them)."""
+        self.lm.requires_grad_(flag)
+        return self
+
+    def train_loss(self, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.lm.train_loss(batch, params)
 
     def prefill(self, batch: Dict[str, torch.Tensor], cache_len: int):
         return self.lm.prefill(batch["tokens"], cache_len)
@@ -68,10 +85,11 @@ class Model:
         return self.lm.cache_specs(batch, cache_len)
 
 
-def build_model(cfg: ArchConfig, *, device="cuda", dtype: torch.dtype = torch.bfloat16) -> Model:
+def build_model(cfg: ArchConfig, *, device="cuda", dtype: torch.dtype = torch.bfloat16,
+                remat_policy: str = "none") -> Model:
     for family, present in (("moe", cfg.moe), ("enc_dec", cfg.enc_dec), ("vlm", cfg.vlm)):
         if present is not None:
             raise NotImplementedError(
                 f"{cfg.name}: the {family} family is not ported yet")
     dev = kernel_device(device)
-    return Model(LM(cfg, dev, dtype), cfg)
+    return Model(LM(cfg, dev, dtype, remat_policy), cfg)

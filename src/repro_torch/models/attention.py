@@ -8,6 +8,12 @@ CPU its plain version.  The reference's pure-JAX variants (``masked_scan``,
 ``triangular``, ``flash``) compute the same function and are not separate
 paths here.  Decode attention (:func:`decode_attend`) is plain torch ops,
 as the reference computes it outside any kernel.
+
+Training differentiates :func:`attend` through :class:`_Flash`, the
+counterpart of the reference's ``custom_vjp`` ``_flash``: its forward is
+the same kernel call, which also returns each row's log-sum-exp, and its
+backward (:func:`_flash_bwd`) is the reference's ``_flash_vjp_bwd`` in
+torch ops, identical on both devices.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from ..kernels.flash_attention import flash_attention_fwd
 
 NEG_INF = -1e30
+CHUNK_K = 1024      # the backward's KV chunk (the reference's attend default)
 
 
 def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -33,6 +40,96 @@ def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def _flash_bwd(q, k, v, out, lse, do, causal: bool, window: Optional[int],
+               softcap: Optional[float]):
+    """The reference's ``_flash_vjp_bwd`` over KV chunks of ``CHUNK_K``:
+    recompute the chunk's probabilities from the saved log-sum-exp, then
+    ``dsum``, ``ds`` (times the softcap's derivative), dq, dk and dv, all in
+    float32.  q, do and out are (B, S, H, D), k and v (B, T, Hkv, D), lse
+    (B, H, S).  The reference differentiates the scaled q; the kernel takes
+    q unscaled, so dq carries the scale once more.
+
+    The work is laid out per KV head as (B, Hkv, G·S, D), the G query heads
+    of a KV head stacked along the rows, so each product is one batched
+    matrix product (dk and dv sum over the group inside it) and the
+    elementwise passes run over contiguous (B, Hkv, G, S, c) scores.  Under
+    a causal mask a chunk's rows before its first key have no unmasked
+    score (their probabilities are exactly 0), so they are left out of its
+    products."""
+    b, s, h, d = q.shape
+    t, n = k.shape[1], k.shape[2]
+    g = h // n
+    scale = 1.0 / math.sqrt(d)
+
+    def heads(x):                 # (B, S, H, D) -> (B, Hkv, G, S, D) float32
+        return x.transpose(1, 2).float().reshape(b, n, g, s, d)
+
+    qf, dof = heads(q) * scale, heads(do)
+    dsum = torch.einsum("bngsd,bngsd->bngs", dof, heads(out))
+    lse = lse.reshape(b, n, g, s)
+    kf, vf = k.transpose(1, 2).float(), v.transpose(1, 2).float()   # (B, Hkv, T, D)
+    q_pos = torch.arange(s, device=q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, n, t, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for j0 in range(0, t, CHUNK_K):
+        j1 = min(j0 + CHUNK_K, t)
+        lo = min(j0, s) if causal else 0
+        if lo == s:
+            break
+        rows = (s - lo) * g
+        qc = qf[:, :, :, lo:].reshape(b, n, rows, d)
+        doc = dof[:, :, :, lo:].reshape(b, n, rows, d)
+        kj, vj = kf[:, :, j0:j1], vf[:, :, j0:j1]
+        sc = torch.matmul(qc, kj.transpose(-1, -2)).view(b, n, g, s - lo, j1 - j0)
+        dcap = None
+        if softcap is not None:
+            th = torch.tanh(sc / softcap)
+            dcap = 1.0 - th * th
+            sc = softcap * th
+        kv_pos = torch.arange(j0, j1, device=q.device)
+        mask = torch.ones((s - lo, j1 - j0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[lo:, None] >= kv_pos[None, :]
+        if window is not None:
+            mask &= q_pos[lo:, None] - kv_pos[None, :] < window
+        p = sc.masked_fill_(~mask, NEG_INF).sub_(lse[..., lo:, None]).exp_()   # normalized
+        dp = torch.matmul(doc, vj.transpose(-1, -2)).view(b, n, g, s - lo, j1 - j0)
+        ds = dp.sub_(dsum[..., lo:, None]).mul_(p)
+        if dcap is not None:
+            ds = ds.mul_(dcap)
+        ds, p = ds.view(b, n, rows, j1 - j0), p.view(b, n, rows, j1 - j0)
+        dq[:, :, :, lo:] += torch.matmul(ds, kj).view(b, n, g, s - lo, d)
+        dk[:, :, j0:j1] = torch.matmul(ds.transpose(-1, -2), qc)
+        dv[:, :, j0:j1] = torch.matmul(p.transpose(-1, -2), doc)
+    dq = (dq * scale).reshape(b, h, s, d).transpose(1, 2)
+    return dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Attention with the flash backward: the forward is the kernel wrapper
+    on detached inputs, returning the output and each row's log-sum-exp;
+    q, k, v, the output and the log-sum-exp are saved; the backward is
+    :func:`_flash_bwd`.  Inputs and output are (B, S, H, D)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        out, lse = flash_attention_fwd(
+            q.detach().transpose(1, 2), k.detach().transpose(1, 2), v.detach().transpose(1, 2),
+            causal=causal, window=window, softcap=softcap, return_lse=True,
+        )
+        out = out.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, do, ctx.causal, ctx.window, ctx.softcap)
+        return dq, dk, dv, None, None, None
+
+
 def attend(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -42,11 +139,15 @@ def attend(
     window: Optional[int] = None,
     logit_softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """Full-sequence attention (prefill): (B, S, H, D) out in v's dtype.
+    """Full-sequence attention (prefill and training): (B, S, H, D) out in
+    v's dtype.  With grad mode on and an input that requires a gradient it
+    runs through :class:`_Flash`; otherwise it calls the kernel wrapper.
 
     The kernel scales q in float32 (as the TPU kernel does), where the
     reference's model path scales it in q's dtype first; for the power-of-two
     scales of D = 16 and D = 64 the two are the same."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, window, logit_softcap).to(v.dtype)
     out = flash_attention_fwd(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window, softcap=logit_softcap,

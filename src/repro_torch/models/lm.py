@@ -8,34 +8,48 @@ layer is a :class:`Block` module holding its own parameters and the groups
 are a Python loop.  Decode caches keep the reference's per-group layout:
 one dict per group of tensors stacked over its layers.
 
-Two entry points: ``prefill(tokens, cache_len)`` and ``decode_step(caches,
-tokens, pos)``.  Every group's prefill ring has capacity ``cache_len``,
-filled from the last ``cache_len`` tokens (the reference's layout, ring
-divergence included: see ROADMAP Queue C).  The current token's k/v is
+Three entry points: ``train_loss(batch, params)``, ``prefill(tokens,
+cache_len)`` and ``decode_step(caches, tokens, pos)``.  Every group's
+prefill ring has capacity ``cache_len``, filled from the last
+``cache_len`` tokens (the reference's layout, ring divergence included:
+see ROADMAP Queue C).  The current token's k/v is
 appended logically during the decode attention, then written at slot
 ``pos % W``; the port writes that slot, and the SSM state, into the caches
 in place.  An rwkv group keeps no ring: its cache is the constant-size
 decode state (both token shifts and the wkv state), also updated in place.
 
-The ``moe`` mixer, ``train_loss`` and ``chunked_xent`` wait for later
-slices.  The reference's ``constrain`` sharding hints are no-ops
-outside a mesh and are not ported: one card has no mesh.
+``train_loss`` runs the dense family's blocks without caches, each under
+the reference's rematerialisation policy (``remat_policy``: ``"none"``,
+the default, recomputes every block in the backward; ``"dots"`` keeps the
+weight products; ``"full"`` keeps everything), and the loss through
+:func:`chunked_xent`.  It takes either the model's own parameters or a
+tree in the reference's layout (stacked groups), which is what the train
+step and the optimizer work on.  The hybrid and rwkv families reach the
+scan and wkv6 kernels, which have no backward yet: their ``train_loss``
+raises ``NotImplementedError``.
+
+The ``moe`` mixer waits for a later slice.  The reference's ``constrain``
+sharding hints are no-ops outside a mesh and are not ported: one card has
+no mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ArchConfig
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .attention import attend, decode_attend
-from .common import ParamSpec, ParamTree, apply_norm, apply_rope, dense_spec, norm_spec, stack_specs
+from .common import (ParamSpec, ParamTree, apply_norm, apply_rope, dense_spec, iter_leaves,
+                     norm_spec, stack_specs)
 from .ffn import mlp_fwd, mlp_spec
 
 
@@ -254,6 +268,122 @@ class Block(ParamTree):
         return x + self._ffn(x)
 
 
+# --- training -------------------------------------------------------------------
+
+TRAIN_KINDS = ("dense",)
+# what the families without a gradient wait for
+NO_GRAD_ITEM = ("ROADMAP Queue A: the backward of ssm_scan_chunked and rwkv6_chunked, "
+                "so that hymba and rwkv6 train")
+
+
+class _Tree:
+    """Attribute access over a nested dict of tensors, so one layer's slice
+    of a stacked reference tree reads like a :class:`Block`
+    (``p.attn.wq``)."""
+
+    __slots__ = ("_d",)
+
+    def __init__(self, d: Dict[str, Any]):
+        self._d = d
+
+    def __getattr__(self, name):
+        try:
+            v = self._d[name]
+        except KeyError:
+            raise AttributeError(name) from None
+        return _Tree(v) if isinstance(v, dict) else v
+
+
+def block_train(cfg: ArchConfig, window: Optional[int], p, x: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """One dense layer without a cache (the reference's block ``fwd``);
+    ``p`` is a :class:`Block` or one layer of a reference tree."""
+    xn = apply_norm(cfg, p.ln1, x)
+    q, k, v = _qkv(cfg, p.attn, xn, positions)
+    out = attend(q, k, v, causal=True, window=window, logit_softcap=cfg.attn_softcap)
+    b, s = q.shape[:2]
+    x = x + out.reshape(b, s, -1) @ p.attn.wo
+    return x + mlp_fwd(p.mlp, apply_norm(cfg, p.ln2, x), style=cfg.mlp_style)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    """(sum of the token losses, their count) in float32: the log-sum-exp
+    about the detached row max, minus the label's logit (a gather, where
+    the reference contracts with a one-hot; the picked value is the same)."""
+    lg = logits.float()
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(lg - m), dim=-1))
+    lab = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    nll = lse - lab
+    if mask is not None:
+        return (nll * mask).sum(), mask.sum()
+    return nll.sum(), torch.tensor(float(nll.numel()), device=nll.device)
+
+
+def chunked_xent(x: torch.Tensor, unembed_w: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None, chunk: int = 1024) -> torch.Tensor:
+    """Sequence-chunked unembed and cross entropy: each chunk's (B, c, V)
+    logits exist only inside its checkpoint and are recomputed in the
+    backward, so the (B, S, V) logits never do.  As in the reference, a
+    sequence that ``chunk`` does not divide, or that is no longer than it,
+    takes one unchunked pass."""
+    b, s, d = x.shape
+    if s % chunk != 0 or s <= chunk:
+        total, count = _xent(x @ unembed_w, labels, mask)
+        return total / torch.clamp(count, min=1.0)
+
+    def body(x_c, w, lab_c, m_c):
+        return _xent(x_c @ w, lab_c, m_c)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, chunk):
+        m_c = (mask[:, i:i + chunk] if mask is not None
+               else torch.ones((b, chunk), dtype=torch.float32, device=x.device))
+        t, c = ckpt.checkpoint(body, x[:, i:i + chunk], unembed_w, labels[:, i:i + chunk], m_c,
+                               use_reentrant=False)
+        total, count = total + t, count + c
+    return total / torch.clamp(count, min=1.0)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of plain matrix products (the
+    weight products, the reference's dots with no batch dims) and
+    recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+def remat(policy: str, fn):
+    """``fn`` under the reference's rematerialisation policy."""
+    if policy == "none":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_products)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, context_fn=ctx)
+    if policy == "full":     # no rematerialisation
+        return fn
+    raise ValueError(f"unknown remat_policy {policy!r}; one of {REMAT_POLICIES}")
+
+
+def unstack_group(group: Dict[str, Any], n_layers: int) -> List[_Tree]:
+    """One :class:`_Tree` per layer over a group's stacked leaves (views by
+    ``unbind``, whose backward stacks the layers' gradients in one op)."""
+    layers: List[Dict[str, Any]] = [{} for _ in range(n_layers)]
+    for name, leaf in iter_leaves(group):
+        *path, last = name.split(".")
+        for i, piece in enumerate(leaf.unbind(0)):
+            node = layers[i]
+            for part in path:
+                node = node.setdefault(part, {})
+            node[last] = piece
+    return [_Tree(layer) for layer in layers]
+
+
 # --- cache specs ------------------------------------------------------------------
 
 def group_cache_spec(cfg: ArchConfig, g: GroupDef, batch: int, cache_len: int) -> Dict[str, ParamSpec]:
@@ -300,9 +430,12 @@ class LM(ParamTree):
     """Decoder-only LM: ``embed``, ``final_norm``, ``unembed`` (unless
     tied) and one :class:`Block` per layer in ``blocks``."""
 
-    def __init__(self, cfg: ArchConfig, device, dtype: torch.dtype):
+    def __init__(self, cfg: ArchConfig, device, dtype: torch.dtype, remat_policy: str = "none"):
         super().__init__(top_spec(cfg), device, dtype)
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {remat_policy!r}; one of {REMAT_POLICIES}")
         self.cfg = cfg
+        self.remat_policy = remat_policy
         self.groups = layer_groups(cfg)
         self.blocks = nn.ModuleList(
             Block(cfg, g, device, dtype) for g in self.groups for _ in range(g.n_layers))
@@ -320,6 +453,33 @@ class LM(ParamTree):
         x = apply_norm(self.cfg, self.final_norm, x)
         w = self.embed.t() if self.cfg.tie_embeddings else self.unembed
         return x @ w
+
+    def train_loss(self, batch: Dict[str, torch.Tensor], params: Optional[Dict[str, Any]] = None):
+        """The mean token cross entropy of ``batch`` (``tokens`` and
+        ``labels``, (B, S)) as a float32 scalar.  ``params``: a tree in the
+        reference's layout (:func:`~repro_torch.models.weights.to_reference`
+        on the model's device), or None for the model's own parameters."""
+        cfg = self.cfg
+        kinds = {g.kind for g in self.groups}
+        if not kinds <= set(TRAIN_KINDS):
+            raise NotImplementedError(
+                f"{cfg.name}: train_loss of {sorted(kinds - set(TRAIN_KINDS))} blocks reaches a "
+                f"kernel without a backward; waits for {NO_GRAD_ITEM}")
+        if params is None:
+            top, layers = self, [blocks for _, blocks in self._group_blocks()]
+        else:
+            top = _Tree(params)
+            layers = [unstack_group(gp, g.n_layers) for g, gp in zip(self.groups, params["groups"])]
+        tokens = batch["tokens"]
+        x = top.embed[tokens.long()]
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for g, group in zip(self.groups, layers):
+            fn = remat(self.remat_policy, functools.partial(block_train, cfg, g.window))
+            for p in group:
+                x = fn(p, x, positions)
+        x = apply_norm(cfg, top.final_norm, x)
+        w = top.embed.t() if cfg.tie_embeddings else top.unembed
+        return chunked_xent(x, w, batch["labels"])
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, cache_len: int) -> Tuple[torch.Tensor, List[Dict]]:

@@ -1,0 +1,106 @@
+"""AdamW with global-norm clipping and a cosine schedule, functional over
+the reference's parameter tree.
+
+The counterpart of ``repro/optim/adamw.py``: the moments mirror the
+parameters' tree (the reference's layout, stacked groups), so the state
+``{"mu", "nu", "count"}`` journals under the reference's keys.  Every
+update is computed in float32 with the reference's casts and in its order
+of operations; the moments are stored in ``moment_dtype`` (float32 by
+default, bfloat16 for the largest archs).  ``update`` returns new tensors
+and leaves its inputs as they were, as the reference does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict
+
+import torch
+
+from ..models.common import ParamSpec
+from ..tree import tree_leaves, tree_map, tree_unflatten_like
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    moment_dtype: torch.dtype = torch.float32
+
+
+def opt_state_specs(param_specs, cfg: AdamWConfig) -> Dict[str, Any]:
+    """ParamSpec tree for the optimizer state."""
+    def _m(s: ParamSpec) -> ParamSpec:
+        return ParamSpec(s.shape, s.logical, cfg.moment_dtype, "zeros")
+
+    return {
+        "mu": tree_map(_m, param_specs),
+        "nu": tree_map(_m, param_specs),
+        "count": ParamSpec((), (), torch.int32, "zeros"),
+    }
+
+
+def init(params, cfg: AdamWConfig) -> Dict[str, Any]:
+    z = lambda p: torch.zeros(p.shape, dtype=cfg.moment_dtype, device=p.device)
+    leaves = tree_leaves(params)
+    return {
+        "mu": tree_map(z, params),
+        "nu": tree_map(z, params),
+        "count": torch.zeros((), dtype=torch.int32, device=leaves[0].device),
+    }
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    step = step.float()
+    warm = torch.clamp(step / max(1, cfg.warmup_steps), max=1.0)
+    prog = torch.clamp(
+        (step - cfg.warmup_steps) / max(1, cfg.total_steps - cfg.warmup_steps), 0.0, 1.0)
+    return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The square root of the sum, in flattening order, of each leaf's sum
+    of squares in float32."""
+    total = None
+    for leaf in tree_leaves(tree):
+        sq = torch.sum(torch.square(leaf.float()))
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
+
+
+def update(grads, state, params, cfg: AdamWConfig):
+    """Returns ``(new_params, new_state, metrics)``."""
+    count = state["count"] + 1
+    gn = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
+    lr = schedule(cfg, count)
+    b1c = 1.0 - torch.pow(cfg.b1, count.float())
+    b2c = 1.0 - torch.pow(cfg.b2, count.float())
+
+    def _upd(p, g, m, v):
+        g = g.float() * scale
+        m32, v32 = m.float(), v.float()
+        m_new = cfg.b1 * m32 + (1.0 - cfg.b1) * g
+        v_new = cfg.b2 * v32 + (1.0 - cfg.b2) * g * g
+        mhat = m_new / b1c
+        vhat = v_new / b2c
+        step = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+        p_new = p.float() - lr * step
+        return p_new.to(p.dtype), m_new.to(cfg.moment_dtype), v_new.to(cfg.moment_dtype)
+
+    out = [_upd(*leaves) for leaves in zip(
+        tree_leaves(params), tree_leaves(grads), tree_leaves(state["mu"]), tree_leaves(state["nu"]))]
+    new_params = tree_unflatten_like(params, [o[0] for o in out])
+    new_state = {
+        "mu": tree_unflatten_like(params, [o[1] for o in out]),
+        "nu": tree_unflatten_like(params, [o[2] for o in out]),
+        "count": count,
+    }
+    return new_params, new_state, {"grad_norm": gn, "lr": lr}

@@ -1,0 +1,68 @@
+"""Training step builder: loss, gradients and AdamW, with optional
+microbatch gradient accumulation (``accum_steps``) and optional int8
+gradient compression (``compress_grads``).
+
+The counterpart of ``repro/train/step.py``.  ``make_train_step`` returns
+``step(params, opt_state, batch) -> (params, opt_state, metrics)`` over
+the reference's parameter tree (``to_reference(model, device)``); the
+gradients are taken with ``torch.autograd.grad`` of the model's
+``train_loss`` with respect to that tree's leaves.  Accumulation sums the
+microbatches' gradients in float32 and casts their mean to bfloat16, as
+the reference does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..models.api import Model
+from ..optim import adamw
+from ..parallel import compression
+from ..tree import tree_leaves, tree_map, tree_unflatten_like
+
+
+def make_train_step(
+    model: Model,
+    opt_cfg: adamw.AdamWConfig,
+    accum_steps: int = 1,
+    compress_grads: bool = False,
+):
+    def _grads(params, batch):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        leaves = tree_leaves(live)
+        with torch.enable_grad():
+            loss = model.train_loss(live, batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), tree_unflatten_like(params, list(grads))
+
+    def step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        if accum_steps == 1:
+            loss, grads = _grads(params, batch)
+        else:
+            # split every leading-batch leaf into accum_steps microbatches
+            def _split(x):
+                b = x.shape[0]
+                assert b % accum_steps == 0, (b, accum_steps)
+                return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])
+
+            micro = {k: _split(v) for k, v in batch.items()}
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                            params)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+            for i in range(accum_steps):
+                loss, grads = _grads(params, {k: v[i] for k, v in micro.items()})
+                gsum = tree_map(lambda a, g: a + g.float(), gsum, grads)
+                loss_sum = loss_sum + loss
+            grads = tree_map(lambda g: (g / accum_steps).to(torch.bfloat16), gsum)
+            loss = loss_sum / accum_steps
+
+        if compress_grads:
+            grads = compression.fake_quantize_tree(grads)
+
+        params, opt_state, metrics = adamw.update(grads, opt_state, params, opt_cfg)
+        metrics = {**metrics, "loss": loss}
+        return params, opt_state, metrics
+
+    return step

@@ -935,3 +935,118 @@ def test_rwkv_serve_path_on_the_card_matches_the_cpu(cuda_device):
         want, wc = cpu.decode_step(wc, toks[:, i:i + 1], i)
         got, gc = gpu.decode_step(gc, toks[:, i:i + 1].to(cuda_device), i)
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# --- training: the flash kernel's log-sum-exp, _Flash, the train step ------------------
+# The log-sum-exp is float32 from both sides (the bf16 kernel's from its
+# float32 row max and sum), so it holds the float32 attention tolerance.
+
+LSE_CASES = [
+    # (b, hq, hkv, s, d, window, softcap)
+    (2, 32, 4, 512, 64, None, None),      # tinyllama's heads
+    (2, 25, 5, 1000, 64, 256, None),      # hymba's heads, ragged S, window
+    (1, 12, 2, 300, 128, None, 30.0),     # D = 128, softcap
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,d,window,softcap", LSE_CASES)
+def test_flash_attention_lse_matches_plain(cuda_device, b, hq, hkv, s, d, window, softcap, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q = torch.randn(b, s, hq, d, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    k = torch.randn(b, s, hkv, d, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    v = torch.randn(b, s, hkv, d, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    kw = dict(window=window, softcap=softcap)
+    n0 = cuda.LAUNCHES["flash_attention"]
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    o_alone = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] == n0 + 2
+    assert torch.equal(o, o_alone)                 # asking for lse leaves o bit for bit
+    want_o, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert lse.shape == (b, hq, s) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want_lse, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(o.float(), want_o.float(), **_ftol(dtype))
+
+
+def _plain_attend(q, k, v, window, softcap):
+    from repro_torch.kernels.flash_attention import flash_attention_plain as plain
+
+    out = plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), window=window,
+                softcap=softcap)
+    return out.transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hq,hkv,d,window,softcap", [
+    (300, 8, 2, 64, None, None),
+    (300, 4, 4, 128, None, None),
+    (1100, 4, 1, 64, 256, None),        # window; S past the backward's chunk of 1024
+    (200, 4, 2, 64, None, 20.0),        # softcap
+])
+def test_flash_gradients_match_autograd_over_plain(cuda_device, s, hq, hkv, d, window, softcap,
+                                                   dtype):
+    """``_Flash`` (kernel forward, torch-op backward) against autograd
+    through the plain version; float32 at 1e-4, bfloat16 at 3e-2 (each side
+    rounds its gradients to bfloat16 on its own) relative to the leaf's
+    largest gradient; TF32 off."""
+    from repro_torch.models.attention import attend
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(s + hq)
+    q = torch.randn(2, s, hq, d, generator=g, device=cuda_device).to(dtype)
+    k = torch.randn(2, s, hkv, d, generator=g, device=cuda_device).to(dtype)
+    v = torch.randn(2, s, hkv, d, generator=g, device=cuda_device).to(dtype)
+    w = torch.randn(2, s, hq, d, generator=g, device=cuda_device)
+    grads = []
+    for fn in (lambda *a: attend(*a, window=window, logit_softcap=softcap),
+               lambda *a: _plain_attend(*a, window, softcap)):
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        n0 = cuda.LAUNCHES["flash_attention"]
+        (fn(*leaves).float() * w).sum().backward()
+        grads.append([x.grad.float() for x in leaves])
+    assert cuda.LAUNCHES["flash_attention"] == n0        # the plain pass launched nothing
+    rel = 1e-4 if dtype == torch.float32 else 3e-2
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=rel, atol=rel * float(want.abs().max()))
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """Reduced tinyllama with head dim 64 (the kernel's width), float32,
+    TF32 off: three train steps on the card (flash kernel forward and its
+    recompute, torch-op backward) against the CPU's on the same weights and
+    batches, at 1e-4 of each leaf's largest magnitude."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.api import build_model
+    from repro_torch.models.weights import to_reference
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("tinyllama-1.1b"), head_dim=64, n_heads=4, n_kv_heads=2)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32).init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device=cuda_device, dtype=torch.float32)
+    gpu.lm.load_state_dict(cpu.lm.state_dict())
+    out = []
+    for model in (cpu, gpu):
+        params = to_reference(model, device=model.device)
+        opt = adamw.init(params, opt_cfg)
+        step = make_train_step(model, opt_cfg)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=2, seq_len=128))
+        n0 = cuda.LAUNCHES["flash_attention"]
+        losses = []
+        for _ in range(3):
+            batch = {k: torch.from_numpy(v).to(model.device) for k, v in pipe.next_batch().items()}
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+        launched = cuda.LAUNCHES["flash_attention"] - n0
+        out.append((losses, tree_map(lambda t: t.cpu(), params), launched))
+    (cpu_losses, cpu_params, _), (gpu_losses, gpu_params, launched) = out
+    assert launched == 3 * 2 * cfg.n_layers          # forward and recompute per layer and step
+    np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+    for got, want in zip(tree_leaves(gpu_params), tree_leaves(cpu_params)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))

@@ -2,15 +2,16 @@
 and its kernel mode never runs quietly on the CPU.
 
 * An ``ast`` walk over every module of ``src/repro_torch/`` and over
-  ``chip_smoke.py`` finds no import of ``jax`` or ``repro``.
+  ``chip_smoke.py`` finds no import of ``jax``, ``repro`` or ``ml_dtypes``
+  (the journal writes bfloat16 from torch tensors itself).
 * ``import repro_torch`` (and its main-path modules) in a fresh interpreter
-  leaves ``jax`` and ``repro`` out of ``sys.modules``.
+  leaves ``jax``, ``repro`` and ``ml_dtypes`` out of ``sys.modules``.
 * With no CUDA device, ``BatchOCC(mode="kernel")``,
   ``recover(mode="kernel")``, ``ShardedEngine()``,
   ``recover_sharded(mode="kernel")``, ``ReplicaApplier``, ``Replica``,
   ``ShardedReplica``, the serving tier's ``SingleBackend.make()`` and
-  ``ShardedBackend.make()``, ``build_model`` and the serve CLI on the
-  default device raise; each of the OLTP ones runs with ``device="cpu"``.
+  ``ShardedBackend.make()``, ``build_model`` (and so ``train_loss``), the
+  serve CLI and the train CLI on the default device raise; each of the OLTP ones runs with ``device="cpu"``.
 * The kernel wrappers pick the kernel or the plain version by the tensor's
   device alone: no environment switch exists.
 """
@@ -26,7 +27,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _sources():
@@ -65,10 +66,12 @@ def test_fresh_import_leaves_jax_and_reference_out():
         "import repro_torch.core.variants, repro_torch.core.levels, repro_torch.db.tpcc\n"
         "import repro_torch.serve, repro_torch.obs.health, repro_torch.obs.flight\n"
         "import repro_torch.obs.forensics, repro_torch.trace.dag, repro_torch.trace.sim\n"
-        "import repro_torch.trace.tune\n"
+        "import repro_torch.trace.tune, repro_torch.journal, repro_torch.optim.adamw\n"
+        "import repro_torch.parallel.compression, repro_torch.train.step\n"
+        "import repro_torch.data.pipeline, repro_torch.launch.train, repro_torch.tree\n"
         "from repro_torch.configs.registry import ARCH_NAMES, get_config\n"
         "[get_config(a) for a in ARCH_NAMES]\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -219,6 +222,25 @@ def test_llm_entry_points_without_cuda_raise(no_cuda):
         ServeEngine(build_model(cfg))
     model = build_model(cfg, device="cpu")
     assert model.device.type == "cpu" and ServeEngine(model).model is model
+
+
+def test_train_entry_points_without_cuda_raise(no_cuda):
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.api import build_model
+
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg).train_loss(None, {})             # default: cuda
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg, remat_policy="full")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1"])
+    model = build_model(cfg, device="cpu")
+    tokens = torch.zeros((1, 8), dtype=torch.int32)
+    loss = model.train_loss(None, {"tokens": tokens, "labels": tokens})
+    assert loss.device.type == "cpu" and loss.dtype == torch.float32
 
 
 def test_no_environment_switch_in_the_kernel_modules():
