@@ -24,8 +24,10 @@ together), and then:
    flash attention (hymba's prefill shape, B=8, S=T=2048, 25 query and 5 KV
    heads of 64, full and window 1024, bfloat16 and float32, plus a ragged
    S=1000, a bfloat16 full-causal D=128 case with 12 query and 2 KV
-   heads, and tinyllama-1.1b's training shape, 32 query and 4 KV heads,
-   causal, bfloat16 and float32; every case also checks the log-sum-exp
+   heads, tinyllama-1.1b's training shape, 32 query and 4 KV heads,
+   causal, bfloat16 and float32, and stablelm-12b's prefill shape, 32 query
+   and 8 KV heads of 160, causal, bfloat16 and float32, on the CUDA-core
+   kernel at D = 160; every case also checks the log-sum-exp
    output against the plain version, ``o`` bit-identical with and without
    it, and its cost; the training shape also times the torch-op attention
    backward and SDPA's), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
@@ -78,26 +80,32 @@ together), and then:
    ``serve_tier_path`` JSON line;
    on paths 3, 4a, 4b and 4c every fused OCC round's ``validate_sequence``
    is held against its plain version on the round's own inputs;
-5. drives the LLM serve path for ``hymba-1.5b`` and then ``rwkv6-7b``, each
-   at full width and depth in bfloat16 with seeded random weights: one
-   ``ServeEngine`` (cache 4096) answering a warm-up and a timed request of
-   8 prompts x 2048 tokens and one of 2 x 1000 tokens, 64 new tokens each;
-   asserts finite logits and 32 launches per prefill of each of the arch's
-   kernels (flash attention and the scan for hymba, wkv6 for rwkv6) and
-   none of the others, and profiles one more prefill and 8 decode steps;
-6. checks each serve path at full width in float32 (TF32 off): a prefill
-   of 2048 tokens plus 16 decode steps against one prefill of all 2064;
-6a. trains tinyllama-1.1b at full width and depth (``train_path``): a
-   float32 gradient oracle (``_Flash`` against autograd through the plain
-   attention, 1 x 2048 tokens, TF32 off); then, in deterministic mode,
-   bf16 weights, fp32 AdamW moments, 8 x 2048 tokens a step: steps 0-5
-   with the Poplar journal on 4 SSD lanes (step 1 saved and committed,
-   step 3 saved and crashed at once, a torn frame appended), a restore
-   whose every leaf's SHA-256 equals the saved step's, a fresh model
-   resumed to step 5 with losses and final digests equal to the first
-   run's bit for bit, 44 flash launches per step and no other kernel, one
-   profiled step (device ms by group, the card's busy share); prints host
-   RAM and free disk first and one ``train_path`` JSON line;
+5. drives the LLM serve path for ``hymba-1.5b``, ``rwkv6-7b`` and then
+   ``stablelm-12b``, each at full width and depth in bfloat16 with seeded
+   random weights: one ``ServeEngine`` (cache 4096) answering a warm-up and
+   a timed request of 8 prompts x 2048 tokens and one of 2 x 1000 tokens,
+   64 new tokens each; asserts finite logits and one launch per layer and
+   prefill of each of the arch's kernels (flash attention and the scan for
+   hymba, wkv6 for rwkv6, flash attention at head dim 160 for stablelm)
+   and none of the others, and profiles one more prefill and 8 decode steps;
+6. checks each serve path at full width and depth in float32 (TF32 off;
+   the model widened in place): a prefill of 2048 tokens plus 16 decode
+   steps against one prefill of all 2064;
+6a. trains at full width (``train_path``), one arch at a time:
+   tinyllama-1.1b and hymba-1.5b at full depth, rwkv6-7b at 8 of its 32
+   layers: a float32 gradient oracle (each kernel's training Function,
+   ``_Flash``, ``_SsmScan``, ``_Wkv6``, against autograd through its plain
+   version, 1 x 2048 tokens, TF32 off); then, in deterministic mode, bf16
+   weights, fp32 AdamW moments, 8 x 2048 tokens a step, each step
+   launching each of the arch's kernels twice per layer (forward and
+   recompute) and no other kernel.  tinyllama and hymba run steps 0-5 with
+   the Poplar journal on 4 SSD lanes (step 1 saved and committed, step 3
+   saved and crashed at once, a torn frame appended), a restore whose every
+   leaf's SHA-256 equals the saved step's and a fresh model resumed to step
+   5 with losses and final digests equal to the first run's bit for bit;
+   rwkv6 runs 3 steps; each then one profiled step (device ms by group:
+   the kernels' forwards, the torch-op backwards, GEMMs, the optimizer; the
+   card's busy share); one ``train_path`` JSON line per arch;
 7. asserts that every kernel launched on its own path (each path's counts
    set to 0 just before it and read just after);
 8. prints throughput, recovery and serving times beside the card's name and
@@ -111,6 +119,7 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -175,6 +184,8 @@ from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.journal import PoplarCheckpointManager, restore_latest, to_pytree
 from repro_torch.models import attention as attention_mod
 from repro_torch.models import lm as lm_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.api import build_model
 from repro_torch.models.serve_llm import ServeEngine
 from repro_torch.models.weights import load_reference, to_reference
@@ -258,9 +269,12 @@ LLM_KERNELS = ("flash_attention", "ssm_scan_chunked", "rwkv6_chunked")
 # layer: hymba-1.5b at full width (32 layers, d_model 1600, 25 query / 5 KV
 # heads of 64, window 1024 with full attention at layers 0, 16 and 31, a
 # 25-head Mamba branch of state 16), then rwkv6-7b (32 layers, d_model
-# 4096, 64 wkv heads of 64, d_ff 14336, vocab 65536)
+# 4096, 64 wkv heads of 64, d_ff 14336, vocab 65536), then stablelm-12b (40
+# layers, d_model 5120, 32 query / 8 KV heads of 160, d_ff 13824, vocab
+# 100352, LayerNorm: the flash kernel at head dim 160)
 SERVE_ARCHS = (("hymba-1.5b", ("flash_attention", "ssm_scan_chunked")),
-               ("rwkv6-7b", ("rwkv6_chunked",)))
+               ("rwkv6-7b", ("rwkv6_chunked",)),
+               ("stablelm-12b", ("flash_attention",)))
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, CACHE_LEN = 8, 2048, 64, 4096
 RAGGED_BATCH, RAGGED_PROMPT = 2, 1000
 ORACLE_STEPS = 16
@@ -282,20 +296,56 @@ LLM_TOL = {torch.bfloat16: (1e-3, 2.0 ** -7), torch.float32: (2e-4, 2e-4)}
 # The same limit holds for rwkv6-7b, whose layer-normed logits are of the
 # same scale: measured 3.5e-4 with logits up to 4.45.
 ORACLE_TOL = 1e-3
-# the training phase: tinyllama-1.1b (arXiv:2401.02385 / the Hugging Face
-# config) at full width and depth, bf16 parameters, fp32 AdamW moments,
-# batches of 8 x 2048 tokens; run A trains steps 0-5, journals steps 1
-# (committed) and 3 (crashed right after its save), the restore picks one of
-# them and a fresh model resumes to step 5
-TRAIN_ARCH = "tinyllama-1.1b"
+# the training phase, one run per arch, each at full width with bf16
+# parameters, fp32 AdamW moments, batches of 8 x 2048 tokens and
+# remat_policy "none" (every block runs forward twice a step: the forward and
+# the backward's recompute)
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
-TRAIN_STEPS = 6
-TRAIN_SAVES = (1, 3)
 TRAIN_LR, TRAIN_WARMUP, TRAIN_TOTAL = 1e-3, 10, 100    # the train CLI's schedule
-# four SSD lanes; 22 slices and 64-MiB buffers: the largest record, a slice
-# of w_gate's fp32 moment (22 x 2048 x 5632 x 4 B / 22), is 46.1 MB, and a
-# record larger than a buffer raises
-JOURNAL_LANES, JOURNAL_SLICES, JOURNAL_BUFFER = 4, 22, 64 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainRun:
+    arch: str
+    kernels: tuple             # launched twice per layer and step, and nothing else
+    steps: int                 # run A's steps
+    saves: tuple = ()          # journaled steps: the first committed, the second crashed
+    journal: tuple = ()        # (SSD lanes, slices, buffer bytes); () runs no journal
+    layers: int = 0            # a depth cut (0: full depth), and why
+    why_layers: str = ""
+    # the gradient oracle's end-to-end side is gated too (see run_grad_oracle)
+    oracle_end_to_end: bool = True
+
+
+TRAIN_RUNS = (
+    # tinyllama-1.1b (arXiv:2401.02385 / the Hugging Face config), full depth:
+    # run A trains steps 0-5, journals steps 1 (committed) and 3 (crashed
+    # right after its save), the restore picks one of them and a fresh model
+    # resumes to step 5.  22 slices and 64-MiB buffers: the largest record, a
+    # slice of w_gate's fp32 moment (22 x 2048 x 5632 x 4 B / 22), is 46.1 MB,
+    # and a record larger than a buffer raises.
+    TrainRun("tinyllama-1.1b", ("flash_attention",), 6, (1, 3), (4, 22, 64 << 20)),
+    # hymba-1.5b (arXiv:2411.13676 / the Hugging Face config), full depth, the
+    # same run.  Its groups stack 1/15/1/14/1 layers and a leaf is sliced
+    # along its stacked dim only when that dim holds at least n_slices: at 14
+    # slices the largest record is two layers of an MLP weight's fp32 moment
+    # (2 x 1600 x 5504 x 4 B = 70.5 MB), under 96-MiB buffers.
+    # Its full-depth float32 gradients move far more than tinyllama's under
+    # one float32 rounding of a forward output (the oracle's side (c); PERF.md,
+    # PR 24): end to end, the kernels' own rounding reaches 1e-4 of a leaf's
+    # max |g| (tools/train_oracle_split.py), so only the oracle at the
+    # kernels' forward values is gated; the end-to-end reading is printed
+    # beside that floor.
+    TrainRun("hymba-1.5b", ("flash_attention", "ssm_scan_chunked"), 6, (1, 3),
+             (4, 14, 96 << 20), oracle_end_to_end=False),
+    # rwkv6-7b (arXiv:2404.05892 / the Hugging Face config) at 8 of its 32
+    # layers: three steps, no journal (its tree goes through the journal in
+    # the CPU tests, and the journal code is hymba's)
+    TrainRun("rwkv6-7b", ("rwkv6_chunked",), 3, layers=8, why_layers=(
+        "the optimizer holds the old and the new parameters and moments (22 B a parameter "
+        "with bf16 gradients) and one stacked leaf's float32 temporaries: 7.53 B parameters "
+        "need ~166 GB at full depth, and 10 layers (2.72 B) already ~79 GB of the 80-GB card")),
+)
 # the full-width float32 gradient oracle: _Flash (the kernel's forward and
 # the torch-op backward) against autograd through the plain attention, each
 # leaf's gradient within this share of its largest magnitude
@@ -812,6 +862,10 @@ def check_llm_kernels(seed: int):
     for dt in (torch.bfloat16, torch.float32):
         cases.append(_flash_case(gen, TRAIN_BATCH, TRAIN_SEQ, None, dt, dev, hq=32, hkv=4, d=64,
                                  train=dt == torch.bfloat16))
+    # stablelm-12b's prefill shape (32 query / 8 KV heads of 160, causal):
+    # the CUDA-core kernel at D = 160 in both types
+    for dt in (torch.bfloat16, torch.float32):
+        cases.append(_flash_case(gen, b, s, None, dt, dev, hq=32, hkv=8, d=160))
     cases.append(_ssm_case(gen, b, s, torch.float32, dev))
     cases.append(_ssm_case(gen, b, s, torch.bfloat16, dev))
     cases.append(_ssm_case(gen, RAGGED_BATCH, RAGGED_PROMPT, torch.float32, dev))
@@ -2175,12 +2229,16 @@ def profile_serve(model, tokens, steps: int = 8):
 
 
 def run_oracle(model, prompt, generated):
-    """Full width in float32 with TF32 off: a prefill of the prompt plus
-    ORACLE_STEPS decode steps on the tokens the bfloat16 run generated,
-    against one prefill of all of them.  Returns (max abs error, max |logit|)."""
+    """Full width and depth in float32 with TF32 off: a prefill of the prompt
+    plus ORACLE_STEPS decode steps on the tokens the bfloat16 run generated,
+    against one prefill of all of them.  Returns (max abs error, max |logit|).
+    The bfloat16 model is widened in place, one parameter at a time, so its
+    bfloat16 copy is freed as the float32 one is made: stablelm-12b's two
+    copies side by side (24 + 48 GB) would leave little of the card."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    m32 = model.cast(torch.float32)
+    model.lm.float()
+    m32 = model
     toks = torch.cat([prompt, generated[:, :ORACLE_STEPS]], dim=1)
     s = prompt.shape[1]
     logits, caches = m32.prefill({"tokens": toks[:, :s]}, CACHE_LEN)
@@ -2235,75 +2293,190 @@ def _plain_attend(q, k, v, *, causal=True, window=None, logit_softcap=None):
     return out.transpose(1, 2)
 
 
+class _PlainScan:
+    """The scan through autograd over ``ssm_scan_chunked_plain``, in
+    ``_SsmScan``'s place (the oracle's other side)."""
+
+    @staticmethod
+    def apply(xh, dt, decay, bt, ct):
+        y, h = ssm_scan_chunked_plain(xh.transpose(1, 2), dt.transpose(1, 2),
+                                      decay.transpose(1, 2), bt, ct)
+        return y.transpose(1, 2), h
+
+
+class _PlainWkv6:
+    """wkv6 through autograd over ``rwkv6_chunked_plain``, in ``_Wkv6``'s
+    place (the oracle's other side)."""
+
+    @staticmethod
+    def apply(rh, kh, vh, wh, u):
+        y, S = rwkv6_chunked_plain(*(t.transpose(1, 2) for t in (rh, kh, vh, wh)), u)
+        return y.transpose(1, 2), S
+
+
+class _PlainSide:
+    """Swap the three kernels' training Functions for autograd over their
+    plain versions, and put them back after.  ``values="kernel_values"``: each
+    plain output carries the kernel's value (the kernel wrapper's output on
+    the same inputs, held against the plain output within the float32
+    ``LLM_TOL``), so the two sides' forwards are equal and their gradients
+    differ only by their backwards; ``values="one_ulp"``: each plain output
+    is perturbed by one float32 rounding (relative noise of 2^-24), which
+    shows how far the float32 rounding of a forward moves the gradients."""
+
+    def __init__(self, values: str = "plain"):
+        self.values, self.forward_err = values, {}
+        self._gen = None
+
+    def _carry(self, name, out, kernel_fn):
+        if self.values == "kernel_values":
+            with torch.no_grad():
+                want = kernel_fn()
+            self.forward_err[name] = max(self.forward_err.get(name, 0.0),
+                                         _close(want, out.detach(), torch.float32))
+            return out + (want - out).detach()
+        if self.values == "one_ulp":
+            if self._gen is None:
+                self._gen = torch.Generator(device=out.device).manual_seed(7)
+            noise = torch.randn(out.shape, generator=self._gen, device=out.device)
+            return out * (1 + 2.0 ** -24 * noise)
+        return out
+
+    def __enter__(self):
+        self._saved = lm_mod.attend, ssm_mod._SsmScan, rwkv_mod._Wkv6
+        side, (_, scan_fn, wkv_fn) = self, self._saved
+
+        def attend(q, k, v, **kw):
+            out = _plain_attend(q, k, v, **kw)
+            return side._carry("flash_attention", out, lambda: attention_mod.attend(
+                q.detach(), k.detach(), v.detach(), **kw))
+
+        class Scan:
+            @staticmethod
+            def apply(*args):
+                y, h = _PlainScan.apply(*args)
+                return side._carry("ssm_scan_chunked", y, lambda: scan_fn.apply(
+                    *(t.detach() for t in args))[0]), h
+
+        class Wkv6:
+            @staticmethod
+            def apply(*args):
+                y, S = _PlainWkv6.apply(*args)
+                return side._carry("rwkv6_chunked", y, lambda: wkv_fn.apply(
+                    *(t.detach() for t in args))[0]), S
+
+        lm_mod.attend, ssm_mod._SsmScan, rwkv_mod._Wkv6 = attend, Scan, Wkv6
+        return self
+
+    def __exit__(self, *exc):
+        lm_mod.attend, ssm_mod._SsmScan, rwkv_mod._Wkv6 = self._saved
+
+
 def _train_batch(pipe, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
 
 
-def run_grad_oracle(cfg, seed: int, dev) -> dict:
+def _leaf_errors(keys, got, want):
+    """The largest leaf error relative to that leaf's largest |g|, and its
+    leaf (the oracle's measure)."""
+    worst, worst_key = 0.0, None
+    for key, a, b in zip(keys, got, want):
+        assert torch.isfinite(a).all(), key
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_key = rel, key
+    return worst, worst_key
+
+
+def run_grad_oracle(cfg, run: TrainRun, seed: int, dev) -> dict:
     """Full width in float32, TF32 off: one ``train_loss`` and backward on a
-    1 x 2048 batch through ``_Flash`` against the same with attention
-    through autograd over ``flash_attention_plain``; returns the loss
-    difference and the largest leaf error relative to its largest |g|."""
+    1 x 2048 batch through the kernels' Functions (``_Flash``, ``_SsmScan``,
+    ``_Wkv6``: each kernel forward, its torch-op backward), against autograd
+    through each one's plain version (a) carrying the kernel's forward
+    values, each call's kernel output held against the plain output within
+    the float32 ``LLM_TOL`` (the gate: every leaf within TRAIN_ORACLE_TOL of
+    its max |g|), (b) end to end with the plain forward (gated at the same
+    limit where ``run.oracle_end_to_end``), and (c) end to end with each
+    plain output perturbed by one float32 rounding: how far float32
+    rounding in a forward moves this model's gradients."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = build_model(cfg, device=dev, dtype=torch.float32)
     model.init(torch.Generator(device=dev).manual_seed(seed + 1))
     params = to_reference(model, device=dev)
+    keys = [k for k, _ in keystr_items(params)]
     batch = _train_batch(TokenPipeline(DataConfig(vocab=cfg.vocab, batch=1, seq_len=TRAIN_SEQ,
                                                   seed=seed)), dev)
-    sides = {}
-    for name in ("flash", "plain"):
-        if name == "plain":
-            lm_mod.attend = _plain_attend
-        try:
+    sides, forward_err = {}, {}
+    for name in ("kernels", "kernel_values", "plain", "one_ulp"):
+        side = _PlainSide(name) if name != "kernels" else contextlib.nullcontext()
+        with side:
             live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-            n0 = kcuda.LAUNCHES["flash_attention"]
+            n0 = dict(kcuda.LAUNCHES)
             loss = model.train_loss(live, batch)
             grads = torch.autograd.grad(loss, tree_leaves(live))
-            sides[name] = (float(loss.detach()), grads, kcuda.LAUNCHES["flash_attention"] - n0)
-        finally:
-            lm_mod.attend = attention_mod.attend
-    (loss_f, g_f, n_f), (loss_p, g_p, n_p) = sides["flash"], sides["plain"]
-    assert n_f == 2 * cfg.n_layers and n_p == 0, (n_f, n_p)
-    worst, worst_key = 0.0, None
-    for (key, _), a, b in zip(keystr_items(params), g_f, g_p):
-        assert torch.isfinite(a).all(), key
-        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-        if rel > worst:
-            worst, worst_key = rel, key
-    loss_rel = abs(loss_f - loss_p) / abs(loss_p)
-    assert worst <= TRAIN_ORACLE_TOL and loss_rel <= TRAIN_ORACLE_TOL, (worst, worst_key, loss_rel)
-    del sides, g_f, g_p, params, model
+            launched = _delta(dict(kcuda.LAUNCHES), n0)
+        if name == "kernels":
+            assert launched == {k: 2 * cfg.n_layers if k in run.kernels else 0 for k in launched}, launched
+        elif name == "kernel_values":
+            # comparison launches (forward and recompute): not counted as the path's
+            assert launched == {k: 2 * cfg.n_layers if k in run.kernels else 0 for k in launched}, launched
+            for k, n in launched.items():
+                kcuda.LAUNCHES[k] -= n
+            forward_err = side.forward_err
+        else:
+            assert not any(launched.values()), (name, launched)
+        sides[name] = (float(loss.detach()), grads)
+    loss_k, g_k = sides.pop("kernels")
+    out = dict(loss=loss_k, tol=TRAIN_ORACLE_TOL, layers=cfg.n_layers, forward_max_abs_err=forward_err)
+    for name, (loss, grads) in sides.items():
+        # the kernels' side against (a) and (b); (c) against (b)
+        (got_loss, got), (ref_loss, ref) = (((loss, grads), sides["plain"]) if name == "one_ulp"
+                                            else ((loss_k, g_k), (loss, grads)))
+        worst, key = _leaf_errors(keys, got, ref)
+        out[name] = dict(loss=loss, loss_rel_err=abs(got_loss - ref_loss) / abs(ref_loss),
+                         grad_rel_err=worst, grad_rel_err_leaf=key)
+    gated = ["kernel_values"] + (["plain"] if run.oracle_end_to_end else [])
+    for name in gated:
+        r = out[name]
+        assert r["grad_rel_err"] <= TRAIN_ORACLE_TOL and r["loss_rel_err"] <= TRAIN_ORACLE_TOL, (name, r)
+    out["gated"] = gated
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del sides, g_k, params, model
     torch.cuda.empty_cache()
-    return dict(loss=loss_f, loss_plain=loss_p, loss_rel_err=loss_rel, grad_rel_err=worst,
-                grad_rel_err_leaf=worst_key, tol=TRAIN_ORACLE_TOL)
+    return out
+
+
+# the torch-op backwards and the optimizer, each timed in its own profiler
+# range: (device-ms group, range, module, function)
+_ANNOTATED = (("attention_backward", "train.attn_bwd", attention_mod, "_flash_bwd"),
+              ("ssm_backward", "train.ssm_bwd", ssm_mod, "_chunked_scan_grad"),
+              ("wkv_backward", "train.wkv_bwd", rwkv_mod, "_chunked_wkv_grad"),
+              ("optimizer", "train.optimizer", adamw, "update"))
 
 
 class _Annotated:
-    """Wrap the attention backward and the optimizer update in profiler
+    """Wrap the torch-op backwards and the optimizer update in profiler
     ranges for one profiled step, and put them back after."""
 
     def __enter__(self):
-        from repro_torch.optim import adamw as adamw_mod
         from torch.profiler import record_function
 
-        self._bwd, self._upd = attention_mod._flash_bwd, adamw_mod.update
+        self._saved = [getattr(mod, attr) for _, _, mod, attr in _ANNOTATED]
 
-        def bwd(*a, **kw):
-            with record_function("train.attn_bwd"):
-                return self._bwd(*a, **kw)
+        def ranged(tag, fn):
+            def wrapped(*a, **kw):
+                with record_function(tag):
+                    return fn(*a, **kw)
+            return wrapped
 
-        def upd(*a, **kw):
-            with record_function("train.optimizer"):
-                return self._upd(*a, **kw)
-
-        attention_mod._flash_bwd, adamw_mod.update = bwd, upd
+        for (_, tag, mod, attr), fn in zip(_ANNOTATED, self._saved):
+            setattr(mod, attr, ranged(tag, fn))
         return self
 
     def __exit__(self, *exc):
-        from repro_torch.optim import adamw as adamw_mod
-
-        attention_mod._flash_bwd, adamw_mod.update = self._bwd, self._upd
+        for (_, _, mod, attr), fn in zip(_ANNOTATED, self._saved):
+            setattr(mod, attr, fn)
 
 
 def _kernels_under(events, name):
@@ -2323,8 +2496,9 @@ def _kernels_under(events, name):
 
 def profile_train_step(step_fn, params, opt, batch) -> dict:
     """One train step under the CUDA profiler: device ms by group (the
-    flash forward kernel, the torch-op attention backward, GEMMs outside
-    it, the optimizer, the rest) and the card's busy share of the step."""
+    three kernels' forwards, the torch-op backwards of attention, the scan
+    and wkv6, GEMMs outside them, the optimizer, the rest) and the card's
+    busy share of the step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2338,24 +2512,23 @@ def profile_train_step(step_fn, params, opt, batch) -> dict:
     events = prof.events()
     # the ranges' own spans on the device timeline are not work: leave them out
     device = [e for e in events if e.device_type == DeviceType.CUDA and not e.name.startswith("train.")]
-    total = sum(e.time_range.elapsed_us() for e in device) / 1e3
-    flash = sum(e.time_range.elapsed_us() for e in device if "flash_fwd" in e.name) / 1e3
-    gemm_all = sum(e.time_range.elapsed_us() for e in device if gemm(e.name)) / 1e3
-    attn = _kernels_under(events, "train.attn_bwd")
-    opt_k = _kernels_under(events, "train.optimizer")
-    attn_ms = sum(k.duration for k in attn) / 1e3
-    opt_ms = sum(k.duration for k in opt_k) / 1e3
-    gemm_in = sum(k.duration for k in attn + opt_k if gemm(k.name)) / 1e3
-    groups = {"flash_forward": flash, "attention_backward": attn_ms, "gemm": gemm_all - gemm_in,
-              "optimizer": opt_ms}
+    ms = lambda pick: sum(e.time_range.elapsed_us() for e in device if pick(e.name)) / 1e3
+    total = ms(lambda n: True)
+    groups = {"flash_forward": ms(lambda n: "flash_fwd" in n),
+              "ssm_forward": ms(lambda n: "ssm_chunked" in n),
+              "wkv_forward": ms(lambda n: "rwkv6_chunked" in n)}
+    gemm_in = 0.0
+    for group, tag, _, _ in _ANNOTATED:
+        under = _kernels_under(events, tag)
+        groups[group] = sum(k.duration for k in under) / 1e3
+        gemm_in += sum(k.duration for k in under if gemm(k.name)) / 1e3
+    groups["gemm"] = ms(gemm) - gemm_in
     groups["other"] = total - sum(groups.values())
-    top = sorted(((e.name[:90], e.time_range.elapsed_us() / 1e3) for e in device),
-                 key=lambda kv: -kv[1])
     agg = {}
-    for name, ms in top:
-        agg[name] = agg.get(name, 0.0) + ms
+    for e in device:
+        agg[e.name[:90]] = agg.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
     return out, dict(device_ms=groups, device_total_ms=total, wall_ms=wall * 1e3,
-                     busy=total / (wall * 1e3), attention_backward_gemm_ms=gemm_in,
+                     busy=total / (wall * 1e3), backward_gemm_ms=gemm_in,
                      top=sorted(agg.items(), key=lambda kv: -kv[1])[:8])
 
 
@@ -2381,34 +2554,70 @@ def _journal_sizing(cfg, workdir) -> tuple:
     return ram, disk, full, layers, reading
 
 
-def run_train_path(workdir: str, seed: int, smi: str, dev=torch.device("cuda")) -> dict:
-    """tinyllama-1.1b training with the Poplar journal: (a) the float32
-    gradient oracle; (b) run A, steps 0-5, saves at 1 (committed) and 3
-    (crashed right after ``save`` returned, a torn frame appended); (c)
-    restore, every leaf's digest equal to the saved step's; (d) a fresh
-    model resumed to step 5, losses and final digests equal to run A's bit
-    for bit; (e) 44 flash launches per step and one profiled step."""
+def _largest_record(tree, n_slices: int) -> int:
+    """The bytes of the largest record a save of ``tree`` logs: each leaf
+    sliced along its leading dim into ``n_slices`` (``np.array_split``'s
+    sizes) when that dim holds at least ``n_slices``, else whole."""
+    most = 0
+    for leaf in tree_leaves(tree):
+        t = torch.as_tensor(leaf)
+        rows = t.shape[0] if t.dim() else 1
+        if t.dim() and rows >= n_slices > 1:
+            rows = -(-rows // n_slices)
+        most = max(most, rows * (t.numel() // max(t.shape[0], 1) if t.dim() else 1) * t.element_size())
+    return most
+
+
+def _check_step_launches(launched, run: TrainRun, layers: int, what: str):
+    for name, n in launched.items():
+        assert n == (2 * layers if name in run.kernels else 0), (what, launched)
+
+
+def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
+                   dev=torch.device("cuda")) -> dict:
+    """``run.arch`` training at full width: (a) the float32 gradient oracle;
+    (b) run A, ``run.steps`` steps, each launching each of ``run.kernels``
+    twice per layer (forward and recompute) and no other kernel; with a
+    journal, saves at ``run.saves[0]`` (committed) and ``run.saves[1]``
+    (crashed right after ``save`` returned, a torn frame appended), then (c)
+    restore, every leaf's digest equal to the saved step's, and (d) a fresh
+    model resumed to run A's last step, losses and final digests equal to
+    run A's bit for bit; (e) one profiled step."""
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
-    kcuda.reset_launches()
-    ram, disk, full_gib, layers, reading = _journal_sizing(cfg, workdir)
-    print(f"train_path: host RAM {ram['MemTotal']:.1f} GiB ({ram['MemAvailable']:.1f} available), "
-          f"free disk under the work directory {disk:.1f} GiB; a full-depth save "
-          f"{full_gib:.2f} GiB; journaled depth {layers} of {cfg.n_layers}")
-    reduced = ["steps: 6 of a real run's thousands (run A) and the resume from the restored step",
+    cfg = get_config(run.arch)
+    reduced = [f"steps: {run.steps} of a real run's thousands (run A)"
+               + (" and the resume from the restored step" if run.journal else ""),
                "data: the synthetic TokenPipeline stream; weights: random from the seed"]
-    out = {"arch": cfg.name, "host_ram_gib": ram, "free_disk_gib": disk}
+    if run.layers:
+        cfg = dataclasses.replace(cfg, n_layers=run.layers)
+        reduced.append(f"depth: {run.layers} of {get_config(run.arch).n_layers} layers, "
+                       f"for (a)-(e): {run.why_layers}")
+    out = {"arch": cfg.name}
+    if run.journal:
+        lanes, slices, buffer = run.journal
+        ram, disk, full_gib, layers, reading = _journal_sizing(cfg, workdir)
+        out.update(host_ram_gib=ram, free_disk_gib=disk)
+        print(f"train_path {cfg.name}: host RAM {ram['MemTotal']:.1f} GiB ({ram['MemAvailable']:.1f} "
+              f"available), free disk under the work directory {disk:.1f} GiB; a full-depth save "
+              f"{full_gib:.2f} GiB; journaled depth {layers} of {cfg.n_layers}")
 
-    # (a) the gradient oracle, full width and depth in float32
+    # (a) the gradient oracle, full width in float32
     t0 = time.perf_counter()
-    out["oracle"] = run_grad_oracle(cfg, seed, dev)
+    torch.cuda.reset_peak_memory_stats()
+    out["oracle"] = run_grad_oracle(cfg, run, seed, dev)
     out["oracle"]["seconds"] = time.perf_counter() - t0
-    print(f"train_path oracle (full width, float32, TF32 off, 1 x {TRAIN_SEQ}): loss "
-          f"{out['oracle']['loss']:.6f} vs {out['oracle']['loss_plain']:.6f}, largest leaf "
-          f"gradient error {out['oracle']['grad_rel_err']:.3g} of its max |g| "
-          f"({out['oracle']['grad_rel_err_leaf']}; tol {TRAIN_ORACLE_TOL})")
+    oracle_layers = cfg.n_layers
+    o = out["oracle"]
+    print(f"train_path {cfg.name} oracle (full width, {cfg.n_layers} layers, float32, TF32 off, "
+          f"1 x {TRAIN_SEQ}): largest leaf gradient error of its max |g| against the plain "
+          f"versions at the kernels' forward values {o['kernel_values']['grad_rel_err']:.3g} "
+          f"({o['kernel_values']['grad_rel_err_leaf']}), end to end "
+          f"{o['plain']['grad_rel_err']:.3g} ({o['plain']['grad_rel_err_leaf']}), one float32 "
+          f"rounding of the plain forward {o['one_ulp']['grad_rel_err']:.3g}; gated {o['gated']} "
+          f"at {TRAIN_ORACLE_TOL}; forward max abs err {o['forward_max_abs_err']}; "
+          f"{o['seconds']:.1f} s, peak {o['peak_gib']:.1f} GiB | {smi}", flush=True)
 
-    if layers != cfg.n_layers:
+    if run.journal and layers != cfg.n_layers:
         reduced.append(f"depth for (b)-(d): {layers} of {cfg.n_layers} layers, forced by {reading}")
         cfg = dataclasses.replace(cfg, n_layers=layers)
     # deterministic algorithms for run A and the resume; filling each new
@@ -2428,16 +2637,23 @@ def run_train_path(workdir: str, seed: int, smi: str, dev=torch.device("cuda")) 
         data_cfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
         pipe = TokenPipeline(data_cfg)
         step_fn = make_train_step(model, opt_cfg)
-        jdir = os.path.join(workdir, "journal")
-        mgr = PoplarCheckpointManager(jdir, n_lanes=JOURNAL_LANES, n_slices=JOURNAL_SLICES,
-                                      buffer_capacity=JOURNAL_BUFFER)
-        print(f"train_path run A: {cfg.name} {n_params:,} parameters, {cfg.n_layers} layers, "
-              f"bf16 weights, fp32 moments; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step; journal "
-              f"{JOURNAL_LANES} SSD lanes, {JOURNAL_SLICES} slices, buffer "
-              f"{JOURNAL_BUFFER >> 20} MiB; a save holds {state_bytes / 1e9:.3f} GB")
+        desc = (f"train_path {cfg.name} run A: {n_params:,} parameters, {cfg.n_layers} layers, "
+                f"bf16 weights, fp32 moments; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step")
+        if run.journal:
+            jdir = os.path.join(workdir, "journal")
+            mgr = PoplarCheckpointManager(jdir, n_lanes=lanes, n_slices=slices,
+                                          buffer_capacity=buffer)
+            record = _largest_record({"params": params, "opt": opt}, slices)
+            assert record < buffer, (record, buffer)
+            out.update(journal_lanes=lanes, journal_slices=slices, journal_buffer=buffer,
+                       largest_record=record)
+            desc += (f"; journal {lanes} SSD lanes, {slices} slices, buffer {buffer >> 20} MiB "
+                     f"(largest record {record / 1e6:.1f} MB); a save holds "
+                     f"{state_bytes / 1e9:.3f} GB")
+        print(desc, flush=True)
         torch.cuda.reset_peak_memory_stats()
         losses, step_s, saved, journal = [], [], {}, {}
-        for step in range(TRAIN_STEPS):
+        for step in range(run.steps):
             batch = _train_batch(pipe, dev)
             before = dict(kcuda.LAUNCHES)
             torch.cuda.synchronize()
@@ -2446,20 +2662,19 @@ def run_train_path(workdir: str, seed: int, smi: str, dev=torch.device("cuda")) 
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             losses.append(float(metrics["loss"]))
-            launched = _delta(dict(kcuda.LAUNCHES), before)
-            assert launched["flash_attention"] == 2 * cfg.n_layers, launched
-            assert all(n == 0 for k, n in launched.items() if k != "flash_attention"), launched
+            _check_step_launches(_delta(dict(kcuda.LAUNCHES), before), run, cfg.n_layers,
+                                 f"step {step}")
             assert np.isfinite(losses[-1]), losses
-            print(f"train_path step {step}: loss {losses[-1]:.6f}, {step_s[-1] * 1e3:.1f} ms "
-                  f"| {smi}", flush=True)
-            if step in TRAIN_SAVES:
+            print(f"train_path {cfg.name} step {step}: loss {losses[-1]:.6f}, "
+                  f"{step_s[-1] * 1e3:.1f} ms | {smi}", flush=True)
+            if step in run.saves:
                 state = {"params": params, "opt": opt, "data": pipe.state()}
                 t0 = time.perf_counter()
                 handle = mgr.save(step, state, {"loss": losses[-1]})
                 t_flat = time.perf_counter() - t0
                 saved[step] = _digests(state)
                 row = {"flatten_s": t_flat}
-                if step == TRAIN_SAVES[0]:
+                if step == run.saves[0]:
                     t0 = time.perf_counter()
                     handle.wait(timeout=900)
                     row["log_s"] = time.perf_counter() - t0
@@ -2472,83 +2687,95 @@ def run_train_path(workdir: str, seed: int, smi: str, dev=torch.device("cuda")) 
                     with open(os.path.join(jdir, "log_0.bin"), "ab") as f:
                         f.write(_torn_record())
                 journal[step] = row
-                print(f"train_path save {step}: {row} | {smi}", flush=True)
+                print(f"train_path {cfg.name} save {step}: {row} | {smi}", flush=True)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        final_a = _digests({"params": params, "opt": opt})
-        lane_bytes = sum(os.path.getsize(os.path.join(jdir, f)) for f in os.listdir(jdir)
-                         if f.startswith("log_"))
-        del params, opt, metrics, state, model, step_fn
-        torch.cuda.empty_cache()
+        n_steps = run.steps + 1                  # run A and the profiled step
+        if run.journal:
+            final_a = _digests({"params": params, "opt": opt})
+            lane_bytes = sum(os.path.getsize(os.path.join(jdir, f)) for f in os.listdir(jdir)
+                             if f.startswith("log_"))
+            del params, opt, metrics, state, model, step_fn
+            torch.cuda.empty_cache()
 
-        # (c) restore
-        t0 = time.perf_counter()
-        restored = restore_latest(jdir)
-        restore_s = time.perf_counter() - t0
-        assert restored is not None, "nothing restorable"
-        rstep, flat, meta = restored
-        assert rstep in TRAIN_SAVES, rstep
-        got = {k: _leaf_digest(v) for k, v in flat.items()}
-        assert got == saved[rstep], sorted(k for k in got if got[k] != saved[rstep].get(k))
-        assert meta["loss"] == losses[rstep] and meta["step"] == rstep, (meta, losses)
-        print(f"train_path restore: step {rstep} in {restore_s:.2f} s from {lane_bytes:,} lane "
-              f"bytes; all {len(got)} leaves' digests equal the saved step's | {smi}", flush=True)
+            # (c) restore
+            t0 = time.perf_counter()
+            restored = restore_latest(jdir)
+            restore_s = time.perf_counter() - t0
+            assert restored is not None, "nothing restorable"
+            rstep, flat, meta = restored
+            assert rstep in run.saves, rstep
+            got = {k: _leaf_digest(v) for k, v in flat.items()}
+            assert got == saved[rstep], sorted(k for k in got if got[k] != saved[rstep].get(k))
+            assert meta["loss"] == losses[rstep] and meta["step"] == rstep, (meta, losses)
+            print(f"train_path {cfg.name} restore: step {rstep} in {restore_s:.2f} s from "
+                  f"{lane_bytes:,} lane bytes; all {len(got)} leaves' digests equal the saved "
+                  f"step's | {smi}", flush=True)
 
-        # (d) resume a fresh model from the restored state
-        model_b = build_model(cfg, device=dev, dtype=torch.bfloat16)
-        specs = model_b.param_specs()
-        like = {"params": specs, "opt": adamw.opt_state_specs(specs, opt_cfg),
-                "data": TokenPipeline(data_cfg).state()}
-        tree = to_pytree(flat, like)
-        load_reference(model_b, tree["params"])
-        params_b = to_reference(model_b, device=dev)
-        opt_b = tree_map(lambda t: t.to(dev), tree["opt"])
-        pipe_b = TokenPipeline.restore(data_cfg, {k: v.numpy() for k, v in tree["data"].items()})
-        assert pipe_b.cursor == rstep + 1, pipe_b.cursor
-        del restored, flat, tree
-        step_b = make_train_step(model_b, opt_cfg)
-        losses_b = []
-        for step in range(rstep + 1, TRAIN_STEPS):
-            before = dict(kcuda.LAUNCHES)
-            params_b, opt_b, metrics = step_b(params_b, opt_b, _train_batch(pipe_b, dev))
-            losses_b.append(float(metrics["loss"]))
-            assert kcuda.LAUNCHES["flash_attention"] - before["flash_attention"] == 2 * cfg.n_layers
-        assert losses_b == losses[rstep + 1:], (losses_b, losses)
-        final_b = _digests({"params": params_b, "opt": opt_b})
-        assert final_b == final_a, sorted(k for k in final_b if final_b[k] != final_a[k])
-        print(f"train_path resume from step {rstep}: losses {losses_b} equal run A's bit for bit; "
-              f"final parameter and optimizer digests equal | {smi}", flush=True)
+            # (d) resume a fresh model from the restored state
+            model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+            specs = model.param_specs()
+            like = {"params": specs, "opt": adamw.opt_state_specs(specs, opt_cfg),
+                    "data": TokenPipeline(data_cfg).state()}
+            tree = to_pytree(flat, like)
+            load_reference(model, tree["params"])
+            params = to_reference(model, device=dev)
+            opt = tree_map(lambda t: t.to(dev), tree["opt"])
+            pipe = TokenPipeline.restore(data_cfg, {k: v.numpy() for k, v in tree["data"].items()})
+            assert pipe.cursor == rstep + 1, pipe.cursor
+            del restored, flat, tree
+            step_fn = make_train_step(model, opt_cfg)
+            losses_b = []
+            for step in range(rstep + 1, run.steps):
+                before = dict(kcuda.LAUNCHES)
+                params, opt, metrics = step_fn(params, opt, _train_batch(pipe, dev))
+                losses_b.append(float(metrics["loss"]))
+                _check_step_launches(_delta(dict(kcuda.LAUNCHES), before), run, cfg.n_layers,
+                                     f"resumed step {step}")
+            assert losses_b == losses[rstep + 1:], (losses_b, losses)
+            final_b = _digests({"params": params, "opt": opt})
+            assert final_b == final_a, sorted(k for k in final_b if final_b[k] != final_a[k])
+            print(f"train_path {cfg.name} resume from step {rstep}: losses {losses_b} equal run "
+                  f"A's bit for bit; final parameter and optimizer digests equal | {smi}", flush=True)
+            n_steps += run.steps - rstep - 1
+            out.update(lane_bytes=lane_bytes, restore_s=restore_s, restored_step=rstep,
+                       resumed_losses=losses_b, journal=journal)
 
         # (e) one profiled step
-        _, prof = profile_train_step(step_b, params_b, opt_b, _train_batch(pipe_b, dev))
+        _, prof = profile_train_step(step_fn, params, opt, _train_batch(pipe, dev))
         launches = dict(kcuda.LAUNCHES)
-        n_steps = TRAIN_STEPS + (TRAIN_STEPS - rstep - 1) + 1     # run A, the resume, the profiled
-        want = 2 * get_config(TRAIN_ARCH).n_layers + 2 * cfg.n_layers * n_steps   # with the oracle
-        assert launches["flash_attention"] == want, (launches, want)
-        assert all(n == 0 for k, n in launches.items() if k != "flash_attention"), launches
+        want = {k: 2 * oracle_layers + 2 * cfg.n_layers * n_steps if k in run.kernels else 0
+                for k in launches}
+        assert launches == want, (launches, want)
     finally:
         torch.use_deterministic_algorithms(False)
         torch.utils.deterministic.fill_uninitialized_memory = fill
+    del params, opt, model, step_fn
+    torch.cuda.empty_cache()
 
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    step_ms = float(np.median(step_s[2:])) * 1e3
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    attn_flops = 12 * cfg.n_layers * cfg.n_heads * cfg.hd * pairs * TRAIN_BATCH
-    flops = 6 * n_params * tokens + attn_flops
-    formula = (f"(6 N tokens + 12 L Hq D pairs B) / step = (6 x {n_params:,} x {tokens:,} + 12 x "
-               f"{cfg.n_layers} x {cfg.n_heads} x {cfg.hd} x {pairs:,} x {TRAIN_BATCH}) / step")
+    step_ms = float(np.median(step_s[min(2, run.steps - 1):])) * 1e3
+    flops, formula = 6 * n_params * tokens, f"6 x {n_params:,} x {tokens:,}"
+    if run.arch != "rwkv6-7b":
+        # every layer's attention pairs: causal, or causal within the window
+        pairs = 0
+        for g in lm_mod.layer_groups(cfg):
+            pairs += g.n_layers * _attn_pairs(TRAIN_SEQ, TRAIN_SEQ, g.window)
+        flops += 12 * cfg.n_heads * cfg.hd * pairs * TRAIN_BATCH
+        formula = f"(6 N tokens + 12 Hq D pairs B) = ({formula} + 12 x {cfg.n_heads} x {cfg.hd} " \
+                  f"x {pairs:,} x {TRAIN_BATCH})"
     out.update(
         n_params=n_params, layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         losses=losses, step_ms_each=[t * 1e3 for t in step_s], step_ms=step_ms,
         tokens_per_s=tokens / (step_ms / 1e3), model_flops_per_step=flops,
         flop_rate=flops / (step_ms / 1e3), mfu=flops / (step_ms / 1e3) / BF16_FLOPS,
-        flop_formula=formula, profile=prof, journal=journal, state_bytes=state_bytes,
-        lane_bytes=lane_bytes, restore_s=restore_s, restored_step=rstep,
-        resumed_losses=losses_b, launches_per_step={"flash_attention": 2 * cfg.n_layers},
+        flop_formula=formula + " per step", profile=prof, state_bytes=state_bytes,
+        launches_per_step={k: 2 * cfg.n_layers for k in run.kernels},
         launches=launches, reduced=reduced, seconds=time.perf_counter() - t_phase)
-    print(f"train_path: step {step_ms:.1f} ms (median of steps 2-5), {out['tokens_per_s']:,.0f} "
-          f"tok/s, {out['flop_rate'] / 1e12:.1f} TFLOP/s = {100 * out['mfu']:.1f}% of 989 "
-          f"({formula}); busy {100 * prof['busy']:.1f}% of the profiled step; device ms "
-          f"{prof['device_ms']}; peak {out['peak_gib']:.1f} GiB | {smi}")
+    print(f"train_path {cfg.name}: step {step_ms:.1f} ms (median of steps "
+          f"{min(2, run.steps - 1)}-{run.steps - 1}), {out['tokens_per_s']:,.0f} tok/s, "
+          f"{out['flop_rate'] / 1e12:.1f} TFLOP/s = {100 * out['mfu']:.1f}% of 989 ({formula}); busy "
+          f"{100 * prof['busy']:.1f}% of the profiled step; device ms {prof['device_ms']}; peak "
+          f"{out['peak_gib']:.1f} GiB | {smi}")
     return out
 
 
@@ -2652,14 +2879,17 @@ def main(argv=None) -> int:
           f"plain on every launch {tier['seg_reduces_checked']}, host {tier['host']} | {smi}")
     print("serve_tier_path " + json.dumps(tier, default=float))
 
-    # the LLM serve paths, one model at a time, each with its own counts
+    # the LLM serve paths, one model at a time, each with its own counts; a
+    # kernel's line reports the first serve path that launched it (the D = 160
+    # flash cases, stablelm-12b's)
+    serve_launches = {}
     for arch, arch_kernels in SERVE_ARCHS:
         kcuda.reset_launches()
         serve, model = run_serve_path(arch, arch_kernels, args.seed, smi)
-        serve_launches = dict(kcuda.LAUNCHES)
+        serve_launches[arch] = dict(kcuda.LAUNCHES)
         for name in arch_kernels:
-            assert serve_launches[name] > 0, f"kernel {name} never launched on the {arch} path"
-            launches[name] = serve_launches[name]
+            assert serve_launches[arch][name] > 0, f"kernel {name} never launched on the {arch} path"
+            launches[name] = launches[name] or serve_launches[arch][name]
         prof = profile_serve(model, serve["timed_prompt"])
         print(f"{arch} prefill {SERVE_BATCH} x {SERVE_PROMPT} under the CUDA profiler: device "
               f"ms {prof['prefill_device_ms']}, total {prof['prefill_total_ms']:.1f}; decode "
@@ -2678,21 +2908,27 @@ def main(argv=None) -> int:
         serve["allocated_gib_after_free"] = torch.cuda.memory_allocated() / 2**30
         print("serve_path " + json.dumps(serve, default=float))
 
-    # training with the Poplar journal, with its own counts
-    workdir = tempfile.mkdtemp(prefix="chip_smoke-")
-    try:
-        train = run_train_path(workdir, args.seed, smi)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    assert train["launches"]["flash_attention"] > 0, "flash_attention never launched on train_path"
-    print("train_path " + json.dumps(train, default=float))
+    # training, one arch at a time, each with its own counts
+    for run in TRAIN_RUNS:
+        workdir = tempfile.mkdtemp(prefix="chip_smoke-")
+        try:
+            kcuda.reset_launches()
+            train = run_train_path(workdir, args.seed, smi, run)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for name in run.kernels:
+            assert train["launches"][name] > 0, f"{name} never launched on train_path {run.arch}"
+        print("train_path " + json.dumps(train, default=float))
 
     line = []
     main_cases = {name: next(k for k in llm_cases if k["name"] == name) for name in LLM_KERNELS}
-    for k in kernels + [main_cases[name] for name in LLM_KERNELS]:
+    d160 = [k for k in llm_cases if k["name"] == "flash_attention" and " D=160 " in k["shape"]]
+    for k in kernels + [main_cases[name] for name in LLM_KERNELS] + d160:
+        n = (serve_launches["stablelm-12b"]["flash_attention"] if any(k is c for c in d160)
+             else launches[k["name"]])
         line.append({
             "name": k["name"], "route": "cuda", "source": k["source"],
-            "replaces": k["replaces"], "launches": launches[k["name"]],
+            "replaces": k["replaces"], "launches": n,
             "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound"][0], "bound_by": k["bound"][1],
             "library_ms": k["library_ms"], "shape": k["shape"],

@@ -51,10 +51,19 @@
 // float32 (flash_fwd_kernel): on the fp32 CUDA cores, because fp32 inputs
 // come from the full-width fp32 oracle and hold a 2e-4 limit that TF32 or
 // bf16 products would not. One block per (batch, q head, 64 query rows); a
-// row is owned by D/32 neighbouring threads holding interleaved float4 groups
-// of q and the accumulator in registers; K and V tiles are staged in shared
-// memory; dot products are reduced with warp shuffles; the online softmax
-// takes 16 keys at a time. It is bounded by the fp32 FMA rate (67 TFLOP/s).
+// row is owned by G neighbouring threads (D/32 at D = 64 and 128, 8 at
+// D = 160, so a row's threads are a power of two and never straddle a warp)
+// holding interleaved float4 groups of q and the accumulator in registers;
+// K and V tiles are staged in shared memory as fp32; dot products are
+// reduced with warp shuffles; the online softmax takes 16 keys at a time. It
+// is bounded by the fp32 FMA rate (67 TFLOP/s).
+//
+// Head dim 160 (stablelm-12b), both dtypes: the same CUDA-core kernel,
+// instantiated for D = 160 and, for bf16, loading bf16 and widening it to
+// fp32 on the way into registers and shared memory, computing in fp32 and
+// rounding the output to bf16 (round to nearest even, as torch's cast).
+// The wgmma kernel does not take D = 160: its shared memory at D = 128
+// already fills the block's limit, and P V would need an N = 160 wgmma.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -89,13 +98,33 @@ struct FlashArgs {
   float scale;
 };
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// The CUDA-core kernel's tiling at head dim D: G threads per query row, V4
+// float4 groups of the row per thread, BK keys per shared-memory tile (two
+// fp32 tiles of BK x D stay under the 48-KB static limit: 40 KB at D = 160).
 template <int D>
-__global__ void __launch_bounds__(kBQ * (D / 32))
+struct Fp32Tiling {
+  static_assert(D == 64 || D == 128 || D == 160, "head dim 64, 128 or 160");
+  static constexpr int G = D == 160 ? 8 : D / 32;
+  static constexpr int V4 = D / (4 * G);
+  static constexpr int BK = D == 64 ? 64 : 32;
+};
+
+// T: the type of q, k, v and o (float, or __nv_bfloat16 at D = 160).
+template <int D, typename T>
+__global__ void __launch_bounds__(kBQ * Fp32Tiling<D>::G)
 flash_fwd_kernel(const FlashArgs a) {
-  constexpr int G = D / 32;                 // threads per query row
-  constexpr int BK = D == 64 ? 64 : 32;     // keys per shared-memory tile
+  constexpr int G = Fp32Tiling<D>::G;       // threads per query row
+  constexpr int BK = Fp32Tiling<D>::BK;     // keys per shared-memory tile
   constexpr int NT = kBQ * G;
-  constexpr int V4 = 8;                     // float4 groups per thread (32 dims)
+  constexpr int V4 = Fp32Tiling<D>::V4;     // float4 groups per thread
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 
@@ -108,18 +137,18 @@ flash_fwd_kernel(const FlashArgs a) {
   const long long qpos = q0 + row;
   const bool qvalid = qpos < a.s;
 
-  const float* qp = static_cast<const float*>(a.q) + bi * a.qsb + hi * a.qsh;
-  const float* kp = static_cast<const float*>(a.k) + bi * a.ksb + hk * a.ksh;
-  const float* vp = static_cast<const float*>(a.v) + bi * a.vsb + hk * a.vsh;
+  const T* qp = static_cast<const T*>(a.q) + bi * a.qsb + hi * a.qsh;
+  const T* kp = static_cast<const T*>(a.k) + bi * a.ksb + hk * a.ksh;
+  const T* vp = static_cast<const T*>(a.v) + bi * a.vsb + hk * a.vsh;
 
-  // this thread's dims: float4 group (i * G + g) for i in [0, 8)
-  float qr[32], acc[32];
+  // this thread's dims: float4 group (i * G + g) for i in [0, V4)
+  float qr[4 * V4], acc[4 * V4];
 #pragma unroll
   for (int i = 0; i < V4; ++i) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int d = (i * G + g) * 4 + c;
-      qr[i * 4 + c] = qvalid ? qp[qpos * a.qss + d] * a.scale : 0.f;
+      qr[i * 4 + c] = qvalid ? to_f32(qp[qpos * a.qss + d]) * a.scale : 0.f;
       acc[i * 4 + c] = 0.f;
     }
   }
@@ -139,8 +168,8 @@ flash_fwd_kernel(const FlashArgs a) {
       const long long kpos = kt + j;
       float kx = 0.f, vx = 0.f;
       if (kpos < a.t) {
-        kx = kp[kpos * a.kss + d];
-        vx = vp[kpos * a.vss + d];
+        kx = to_f32(kp[kpos * a.kss + d]);
+        vx = to_f32(vp[kpos * a.vss + d]);
       }
       ks[j][d] = kx;
       vs[j][d] = vx;
@@ -181,7 +210,7 @@ flash_fwd_kernel(const FlashArgs a) {
       }
       l = l * alpha + psum;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] *= alpha;
+      for (int i = 0; i < 4 * V4; ++i) acc[i] *= alpha;
 #pragma unroll
       for (int jj = 0; jj < kKSub; ++jj) {
         const float4* vr = reinterpret_cast<const float4*>(vs[j0 + jj]);
@@ -199,13 +228,13 @@ flash_fwd_kernel(const FlashArgs a) {
   }
 
   if (qvalid) {
-    float* op = static_cast<float*>(a.o) + bi * a.osb + hi * a.osh + qpos * a.oss;
+    T* op = static_cast<T*>(a.o) + bi * a.osb + hi * a.osh + qpos * a.oss;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < V4; ++i) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        op[(i * G + g) * 4 + c] = acc[i * 4 + c] / den;
+        op[(i * G + g) * 4 + c] = from_f32<T>(acc[i * 4 + c] / den);
       }
     }
     // q was scaled on load, so m is in units of the scaled scores
@@ -213,11 +242,11 @@ flash_fwd_kernel(const FlashArgs a) {
   }
 }
 
-template <int D>
+template <int D, typename T = float>
 void launch_fp32(const FlashArgs& a, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>((a.s + kBQ - 1) / kBQ),
                   static_cast<unsigned>(a.hq), static_cast<unsigned>(a.b));
-  flash_fwd_kernel<D><<<grid, kBQ * (D / 32), 0, st>>>(a);
+  flash_fwd_kernel<D, T><<<grid, kBQ * Fp32Tiling<D>::G, 0, st>>>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -900,10 +929,11 @@ int launch_bf16(const FlashArgs& f, cudaStream_t st) {
 // elements of q, k, v and o. lse: null, or a contiguous float32 (B, Hq, S)
 // that receives each row's natural-log log-sum-exp of its scaled, softcapped
 // and masked scores (the softmax statistics a backward recomputes P from).
-// dtype: 0 float32, 1 bfloat16. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a head dim other than 64
-// or 128, an unknown dtype, or bf16 tensors whose TMA maps cannot be encoded
-// (base pointers must be 16-B aligned, strides multiples of 16 B).
+// dtype: 0 float32, 1 bfloat16; head dims 64 and 128 (bf16 on the wgmma
+// kernel) and 160 (both dtypes on the CUDA-core kernel). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another head dim, an
+// unknown dtype, or bf16 tensors whose TMA maps cannot be encoded (base
+// pointers must be 16-B aligned, strides multiples of 16 B).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, float* lse, const long long* meta, int dtype,
                                      int head_dim, int causal, int window,
@@ -923,6 +953,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && head_dim == 64) launch_fp32<64>(a, st);
   else if (dtype == 0 && head_dim == 128) launch_fp32<128>(a, st);
+  else if (dtype == 0 && head_dim == 160) launch_fp32<160>(a, st);
+  else if (dtype == 1 && head_dim == 160) launch_fp32<160, __nv_bfloat16>(a, st);
   else if (dtype == 1 && head_dim == 64) return launch_bf16<64>(a, st);
   else if (dtype == 1 && head_dim == 128) return launch_bf16<128>(a, st);
   else return static_cast<int>(cudaErrorInvalidValue);

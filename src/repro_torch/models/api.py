@@ -20,10 +20,9 @@ or building raises.  ``dtype`` is the type of every weight the reference
 declares as bfloat16 (the default); ``torch.float32`` makes every
 parameter float32.
 
-Families ported so far: ``dense``, ``hybrid`` (hymba) and ``rwkv``
-(rwkv6); only ``dense`` trains (the others' ``train_loss`` raises
-``NotImplementedError``: their kernels have no backward yet).  The ``moe``, ``enc_dec`` (whisper) and ``vlm`` (llava) families
-raise ``NotImplementedError``.
+Families ported so far, each serving and training: ``dense``, ``hybrid``
+(hymba) and ``rwkv`` (rwkv6).  The ``moe``, ``enc_dec`` (whisper) and
+``vlm`` (llava) families raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

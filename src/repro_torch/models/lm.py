@@ -18,15 +18,16 @@ appended logically during the decode attention, then written at slot
 in place.  An rwkv group keeps no ring: its cache is the constant-size
 decode state (both token shifts and the wkv state), also updated in place.
 
-``train_loss`` runs the dense family's blocks without caches, each under
-the reference's rematerialisation policy (``remat_policy``: ``"none"``,
-the default, recomputes every block in the backward; ``"dots"`` keeps the
+``train_loss`` runs the blocks of the dense, hybrid and rwkv families
+without caches (the rwkv block from the zero state), each under the
+reference's rematerialisation policy (``remat_policy``: ``"none"``, the
+default, recomputes every block in the backward; ``"dots"`` keeps the
 weight products; ``"full"`` keeps everything), and the loss through
 :func:`chunked_xent`.  It takes either the model's own parameters or a
 tree in the reference's layout (stacked groups), which is what the train
-step and the optimizer work on.  The hybrid and rwkv families reach the
-scan and wkv6 kernels, which have no backward yet: their ``train_loss``
-raises ``NotImplementedError``.
+step and the optimizer work on.  Attention, the scan and wkv6 run their
+kernels forward and their torch-op backwards (``attention._Flash``,
+``ssm._SsmScan``, ``rwkv._Wkv6``).
 
 The ``moe`` mixer waits for a later slice.  The reference's ``constrain``
 sharding hints are no-ops outside a mesh and are not ported: one card has
@@ -270,10 +271,7 @@ class Block(ParamTree):
 
 # --- training -------------------------------------------------------------------
 
-TRAIN_KINDS = ("dense",)
-# what the families without a gradient wait for
-NO_GRAD_ITEM = ("ROADMAP Queue A: the backward of ssm_scan_chunked and rwkv6_chunked, "
-                "so that hymba and rwkv6 train")
+TRAIN_KINDS = ("dense", "hymba", "rwkv")
 
 
 class _Tree:
@@ -294,15 +292,27 @@ class _Tree:
         return _Tree(v) if isinstance(v, dict) else v
 
 
-def block_train(cfg: ArchConfig, window: Optional[int], p, x: torch.Tensor,
+def block_train(cfg: ArchConfig, kind: str, window: Optional[int], p, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
-    """One dense layer without a cache (the reference's block ``fwd``);
-    ``p`` is a :class:`Block` or one layer of a reference tree."""
+    """One layer of ``kind`` without a cache (the reference's block
+    ``fwd``); ``p`` is a :class:`Block` or one layer of a reference tree."""
+    if kind == "rwkv":
+        r = cfg.rwkv
+        y, _, _ = rwkv_mod.time_mix(p.time, apply_norm(cfg, p.ln1, x), None, r.n_heads, r.head_dim)
+        x = x + y
+        xn2 = apply_norm(cfg, p.ln2, x)
+        y, _ = rwkv_mod.channel_mix(p.channel, xn2, xn2.new_zeros(xn2.shape[0], xn2.shape[2]))
+        return x + y
     xn = apply_norm(cfg, p.ln1, x)
     q, k, v = _qkv(cfg, p.attn, xn, positions)
     out = attend(q, k, v, causal=True, window=window, logit_softcap=cfg.attn_softcap)
     b, s = q.shape[:2]
-    x = x + out.reshape(b, s, -1) @ p.attn.wo
+    a = out.reshape(b, s, -1) @ p.attn.wo
+    if kind == "hymba":
+        sc = cfg.ssm
+        m, _ = ssm_mod.ssm_scan(p.ssm, xn, None, sc.n_heads, sc.head_dim, sc.state_dim)
+        a = 0.5 * (apply_norm(cfg, p.attn_branch_norm, a) + apply_norm(cfg, p.ssm_branch_norm, m))
+    x = x + a
     return x + mlp_fwd(p.mlp, apply_norm(cfg, p.ln2, x), style=cfg.mlp_style)
 
 
@@ -462,9 +472,7 @@ class LM(ParamTree):
         cfg = self.cfg
         kinds = {g.kind for g in self.groups}
         if not kinds <= set(TRAIN_KINDS):
-            raise NotImplementedError(
-                f"{cfg.name}: train_loss of {sorted(kinds - set(TRAIN_KINDS))} blocks reaches a "
-                f"kernel without a backward; waits for {NO_GRAD_ITEM}")
+            raise NotImplementedError(f"{cfg.name}: train_loss of {sorted(kinds)} blocks")
         if params is None:
             top, layers = self, [blocks for _, blocks in self._group_blocks()]
         else:
@@ -474,7 +482,7 @@ class LM(ParamTree):
         x = top.embed[tokens.long()]
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         for g, group in zip(self.groups, layers):
-            fn = remat(self.remat_policy, functools.partial(block_train, cfg, g.window))
+            fn = remat(self.remat_policy, functools.partial(block_train, cfg, g.kind, g.window))
             for p in group:
                 x = fn(p, x, positions)
         x = apply_norm(cfg, top.final_norm, x)

@@ -712,6 +712,48 @@ def test_flash_attention_bf16_kernel_refuses_unaligned_strides(cuda_device):
     torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
 
+# Head dim 160 (stablelm-12b): the CUDA-core kernel in both dtypes, bf16
+# widened to fp32 on load, with the model's (B, S, H, D) layout, the
+# log-sum-exp output, GQA, window, softcap and ragged S and T.
+D160_CASES = [
+    # (b, hq, hkv, s, t, causal, window, softcap)
+    (2, 32, 8, 1024, 1024, True, None, None),     # stablelm-12b's heads
+    (1, 4, 1, 300, 300, True, 64, None),          # window, ragged S
+    (1, 4, 2, 200, 200, True, None, 30.0),        # softcap
+    (1, 6, 2, 150, 150, True, 40, 20.0),          # window and softcap
+    (1, 2, 1, 77, 133, False, None, None),        # bidirectional, ragged S and T
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,s,t,causal,window,softcap", D160_CASES)
+def test_flash_attention_head_dim_160_matches_plain(cuda_device, b, hq, hkv, s, t, causal, window,
+                                                    softcap, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(s * 7 + t + hq)
+    q = torch.randn(b, s, hq, 160, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    k = torch.randn(b, t, hkv, 160, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    v = torch.randn(b, t, hkv, 160, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0 = cuda.LAUNCHES["flash_attention"]
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    o_alone = flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] == n0 + 2
+    assert torch.equal(o, o_alone) and o.dtype == dtype
+    assert o.transpose(1, 2).is_contiguous()
+    want_o, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(o.float(), want_o.float(), **_ftol(dtype))
+    torch.testing.assert_close(lse, want_lse, atol=2e-4, rtol=2e-4)
+
+
+def test_flash_attention_refuses_other_head_dims(cuda_device):
+    q = torch.randn(1, 2, 16, 96, device=cuda_device)
+    n0 = cuda.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head dim 64, 128 or 160, not 96"):
+        flash_attention_fwd(q, q, q)
+    assert cuda.LAUNCHES["flash_attention"] == n0
+
+
 def _ssm_inputs(b, h, s, p, n, dtype, dev, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(b, h, s, p, generator=g, device=dev).to(dtype)
@@ -1011,11 +1053,18 @@ def test_flash_gradients_match_autograd_over_plain(cuda_device, s, hq, hkv, d, w
         torch.testing.assert_close(got, want, rtol=rel, atol=rel * float(want.abs().max()))
 
 
-def test_train_step_on_the_card_matches_the_cpu(cuda_device):
-    """Reduced tinyllama with head dim 64 (the kernel's width), float32,
-    TF32 off: three train steps on the card (flash kernel forward and its
-    recompute, torch-op backward) against the CPU's on the same weights and
-    batches, at 1e-4 of each leaf's largest magnitude."""
+TRAIN_KERNELS = {"tinyllama-1.1b": ("flash_attention",),
+                 "hymba-1.5b": ("flash_attention", "ssm_scan_chunked"),
+                 "rwkv6-7b": ("rwkv6_chunked",)}
+
+
+@pytest.mark.parametrize("arch", sorted(TRAIN_KERNELS))
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Reduced tinyllama and hymba with head dim 64 (the flash kernel's
+    width) and reduced rwkv6, float32, TF32 off: three train steps on the
+    card (each kernel's forward and its recompute, the torch-op backwards)
+    against the CPU's on the same weights and batches, at 1e-4 of each
+    leaf's largest magnitude."""
     from repro_torch.configs.base import reduced
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -1026,7 +1075,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
     from repro_torch.tree import tree_leaves, tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = reduced(get_config("tinyllama-1.1b"), head_dim=64, n_heads=4, n_kv_heads=2)
+    heads = {} if arch == "rwkv6-7b" else dict(head_dim=64, n_heads=4, n_kv_heads=2)
+    cfg = reduced(get_config(arch), **heads)
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
     cpu = build_model(cfg, device="cpu", dtype=torch.float32).init(torch.Generator().manual_seed(0))
     gpu = build_model(cfg, device=cuda_device, dtype=torch.float32)
@@ -1037,16 +1087,36 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
         opt = adamw.init(params, opt_cfg)
         step = make_train_step(model, opt_cfg)
         pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=2, seq_len=128))
-        n0 = cuda.LAUNCHES["flash_attention"]
+        n0 = dict(cuda.LAUNCHES)
         losses = []
         for _ in range(3):
             batch = {k: torch.from_numpy(v).to(model.device) for k, v in pipe.next_batch().items()}
             params, opt, m = step(params, opt, batch)
             losses.append(float(m["loss"]))
-        launched = cuda.LAUNCHES["flash_attention"] - n0
+        launched = {k: n - n0[k] for k, n in cuda.LAUNCHES.items()}
         out.append((losses, tree_map(lambda t: t.cpu(), params), launched))
-    (cpu_losses, cpu_params, _), (gpu_losses, gpu_params, launched) = out
-    assert launched == 3 * 2 * cfg.n_layers          # forward and recompute per layer and step
+    (cpu_losses, cpu_params, cpu_launched), (gpu_losses, gpu_params, launched) = out
+    assert not any(cpu_launched.values())
+    for name, n in launched.items():      # forward and recompute per layer and step
+        assert n == (3 * 2 * cfg.n_layers if name in TRAIN_KERNELS[arch] else 0), launched
     np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
     for got, want in zip(tree_leaves(gpu_params), tree_leaves(cpu_params)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("arch,width", [("hymba-1.5b", ["--d-model", "256"]), ("rwkv6-7b", [])])
+def test_train_cli_runs_on_the_card(cuda_device, tmp_path, capsys, arch, width):
+    """``launch/train.py --arch ... --reduced`` on the card (hymba at
+    d_model 256, so its head dim is the flash kernel's 64): two steps,
+    journaled and committed."""
+    from repro_torch.launch import train as train_cli
+
+    n0 = dict(cuda.LAUNCHES)
+    assert train_cli.main(["--arch", arch, "--reduced", *width, "--steps", "2", "--batch", "2",
+                           "--seq", "64", "--save-every", "1", "--log-every", "1",
+                           "--journal-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert f"arch={arch}" in out and "device=cuda" in out
+    assert "[journal] last committed step: 1" in out
+    kernel = "ssm_scan_chunked" if arch == "hymba-1.5b" else "rwkv6_chunked"
+    assert cuda.LAUNCHES[kernel] - n0[kernel] == 2 * 2 * 2       # 2 layers, 2 steps, recompute

@@ -8,11 +8,14 @@
   elastic resharding, torn lanes, incremental restores, columnar = scan.
 * A journal written by either package restores under the other, columnar
   and scan, to the same step, arrays and metadata.
-* Training: a reduced-tinyllama run crashed after a save, restored and
-  resumed gives an uninterrupted run's losses exactly; the reference's
-  state after k steps, restored by the port, takes one step equal to the
-  reference's next one (1e-4, float32: summation order only); the train
-  CLI resumes at the committed step with the journaled data cursor.
+* Training (reduced tinyllama, hymba and rwkv6): a run crashed after a
+  save, restored and resumed gives an uninterrupted run's losses exactly;
+  the reference's state after k steps, restored by the port, takes one step
+  equal to the reference's next one (1e-4, float32: summation order only);
+  the hybrid's and rwkv's bfloat16 model trees (float32 leaves and the
+  bfloat16 ``conv_w`` among them) with their AdamW moments, journaled by
+  either package, restore under the other bit for bit; the train CLI
+  resumes at the committed step with the journaled data cursor.
 """
 
 import os
@@ -315,13 +318,13 @@ def test_cross_restore(writer, tmp_path):
 
 # --- training through the journal -------------------------------------------------------
 
-CFG = reduced(get_config("tinyllama-1.1b"))
-DATA = DataConfig(vocab=CFG.vocab, batch=2, seq_len=32)
+TRAIN_ARCHS = ["tinyllama-1.1b", "hymba-1.5b", "rwkv6-7b"]
+DATA = DataConfig(vocab=reduced(get_config("tinyllama-1.1b")).vocab, batch=2, seq_len=32)
 OPT = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
 
 
-def _fresh(seed=0):
-    model = build_model(CFG, device="cpu", dtype=torch.float32)
+def _fresh(arch, seed=0, dtype=torch.float32):
+    model = build_model(reduced(get_config(arch)), device="cpu", dtype=dtype)
     model.init(torch.Generator().manual_seed(seed))
     params = to_reference(model)
     return model, params, adamw.init(params, OPT)
@@ -339,12 +342,13 @@ def _train(step_fn, params, opt, pipe, n, mgr=None, save_at=()):
     return params, opt, losses
 
 
-def test_crash_restore_resume_is_exact(tmp_path):
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_crash_restore_resume_is_exact(arch, tmp_path):
     """Run A trains 6 steps, saves at step 1 (committed) and step 3, crashes
     right after the second save and keeps training in memory; the resumed
     run restores the newest committed step into a fresh model and trains to
     step 5 with losses and final state equal to run A's exactly."""
-    model, params, opt = _fresh()
+    model, params, opt = _fresh(arch)
     step_fn = make_train_step(model, OPT)
     mgr = tjournal.PoplarCheckpointManager(str(tmp_path), n_lanes=2, n_slices=2,
                                            flush_interval=1e-3)
@@ -362,7 +366,7 @@ def test_crash_restore_resume_is_exact(tmp_path):
 
     step, flat, meta = tjournal.restore_latest(str(tmp_path))
     assert step in (1, 3) and meta["loss"] == losses_a[step]
-    model_b, like_params, like_opt = _fresh(seed=1)
+    model_b, like_params, like_opt = _fresh(arch, seed=1)
     tree = tjournal.to_pytree(flat, {"params": like_params, "opt": like_opt,
                                      "data": TokenPipeline(DATA).state()})
     load_reference(model_b, tree["params"])
@@ -376,17 +380,18 @@ def test_crash_restore_resume_is_exact(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_reference_state_continues_under_the_port(tmp_path):
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+def test_reference_state_continues_under_the_port(arch, tmp_path):
     """The reference trains 2 steps and journals its state; the port
     restores it and takes step 2, equal to the reference's step 2 at 1e-4."""
-    jcfg = jreduced(jget_config("tinyllama-1.1b"))
+    jcfg = jreduced(jget_config(arch))
     jmodel = jbuild_model(jcfg)
     jopt = jadamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
     params = jax.tree.map(lambda a: np.asarray(a, np.float32),
                           jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
     state = jadamw.init(params, jopt)
     jstep = jax.jit(jmake_train_step(jmodel, jopt))
-    pipe = JTokenPipeline(JDataConfig(vocab=CFG.vocab, batch=2, seq_len=32))
+    pipe = JTokenPipeline(JDataConfig(vocab=DATA.vocab, batch=2, seq_len=32))
     mgr = jjournal.PoplarCheckpointManager(str(tmp_path), n_lanes=2, flush_interval=1e-3)
     for step in range(2):
         params, state, _ = jstep(params, state, pipe.next_batch())
@@ -398,7 +403,7 @@ def test_reference_state_continues_under_the_port(tmp_path):
 
     step, flat, _ = tjournal.restore_latest(str(tmp_path))
     assert step == 1
-    model, like_p, like_o = _fresh()
+    model, like_p, like_o = _fresh(arch)
     tree = tjournal.to_pytree(flat, {"params": like_p, "opt": like_o,
                                      "data": TokenPipeline(DATA).state()})
     got_p, _, got_m = make_train_step(model, OPT)(
@@ -408,6 +413,52 @@ def test_reference_state_continues_under_the_port(tmp_path):
         want = np.asarray(dict(keystr_items(want_p))[key])
         np.testing.assert_allclose(leaf.numpy(), want, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(want).max()), err_msg=key)
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_model_state_cross_restores(arch, writer, tmp_path):
+    """The bfloat16 model tree of a reduced hybrid or rwkv model (hymba's
+    float32 ``a_log``, ``dt_bias``, ``d_skip`` and bfloat16 ``conv_w``;
+    rwkv's ``time`` and ``channel`` subtrees) with its float32 AdamW moments,
+    journaled by one package, restores under the other, columnar and scan,
+    with every leaf's record byte for byte the writer's."""
+    if writer == "repro":
+        jmodel = jbuild_model(jreduced(jget_config(arch)))
+        params = jax.tree.map(np.asarray, jax.jit(jmodel.init)(jax.random.PRNGKey(0)))
+        jopt = jadamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+        state = {"params": params, "opt": jax.tree.map(np.asarray, jadamw.init(params, jopt))}
+    else:
+        _, params, opt = _fresh(arch, dtype=torch.bfloat16)
+        state = {"params": params, "opt": opt}
+    dtypes = {str(a.dtype).replace("torch.", "") for a in tree_leaves(state["params"])}
+    assert dtypes == {"bfloat16", "float32"}, dtypes
+    mgr = PKGS[writer].j.PoplarCheckpointManager(str(tmp_path), n_lanes=2, n_slices=2,
+                                                 flush_interval=1e-3)
+    mgr.save(0, state, {"loss": 1.0}).wait()
+    mgr.wait_for_commit(0, timeout=30)
+    mgr.close()
+    want = PKGS[writer].j.restore_latest(str(tmp_path))
+    reader = "repro" if writer == "repro_torch" else "repro_torch"
+    for columnar in (True, False):
+        got = PKGS[reader].j.restore_latest(str(tmp_path), columnar=columnar)
+        assert got[0] == want[0] == 0 and sorted(got[1]) == sorted(want[1])
+        assert any("conv_w" in k for k in got[1]) or arch == "rwkv6-7b"
+        assert any("['time']" in k for k in got[1]) or arch == "hymba-1.5b"
+        for key in want[1]:
+            assert PKGS[reader].records.encode_array(got[1][key]) == \
+                PKGS[writer].records.encode_array(want[1][key]), key
+
+
+def test_train_cli_runs_the_hybrid_reduced_on_the_cpu(tmp_path, capsys):
+    """``launch/train.py --arch hymba-1.5b --device cpu --reduced`` trains
+    two steps, journals them and commits the last."""
+    assert train_cli.main(["--arch", "hymba-1.5b", "--device", "cpu", "--reduced", "--steps", "2",
+                           "--batch", "2", "--seq", "32", "--save-every", "1", "--log-every", "1",
+                           "--journal-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "arch=hymba-1.5b" in out and "device=cpu" in out and "step     1" in out
+    assert "[journal] last committed step: 1" in out
 
 
 def test_train_cli_resumes_at_the_committed_step(tmp_path, capsys):

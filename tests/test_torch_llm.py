@@ -21,6 +21,7 @@ multiple of the chunk (so the reference's chunked form runs).
 
 import contextlib
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,7 @@ from repro.configs.base import reduced as jreduced
 from repro.configs.registry import ARCH_NAMES as JARCH_NAMES
 from repro.configs.registry import get_config as jget_config
 from repro.models.api import build_model as jbuild_model
+from repro.models.attention import attend as jattend
 from repro.models.lm import layer_groups as jlayer_groups
 from repro.models.serve_llm import ServeEngine as JServeEngine
 from repro_torch.configs.base import reduced
@@ -39,6 +41,7 @@ from repro_torch.configs.registry import ARCH_NAMES, get_config
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import lm as tlm
 from repro_torch.models.api import build_model
+from repro_torch.models.attention import attend as tattend
 from repro_torch.models.common import iter_leaves
 from repro_torch.models.serve_llm import ServeEngine
 from repro_torch.models.weights import from_reference
@@ -99,8 +102,8 @@ def test_prefill_and_decode_match_reference(arch, dtype, impl):
         _prefill_and_decode(arch, dtype, impl)
 
 
-def _prefill_and_decode(arch, dtype, impl):
-    jmodel, params, model = _pair(arch, dtype, mixer_impl=impl)
+def _prefill_and_decode(arch, dtype, impl, **overrides):
+    jmodel, params, model = _pair(arch, dtype, mixer_impl=impl, **overrides)
     tol = _tol(dtype)
     rng = np.random.default_rng(7)
     toks = rng.integers(0, 256, (2, PROMPT + STEPS)).astype(np.int32)
@@ -118,6 +121,48 @@ def _prefill_and_decode(arch, dtype, impl):
         logits, cache = model.decode_step(cache, torch.from_numpy(toks[:, i:i + 1]), i)
         np.testing.assert_allclose(_np(logits), _np(jlogits), err_msg=f"step {i}", **tol)
     _assert_caches_close(cache, jcache, tol)
+
+
+def test_reduced_stablelm_head_dim_160_matches_reference():
+    """stablelm-12b's head dim of 160 (LayerNorm, 4 query and 2 KV heads of
+    160 at the reduced width), float32: prefill logits and caches and 8
+    decode steps against the reference at 1e-4."""
+    _prefill_and_decode("stablelm-12b", "float32", "scan", head_dim=160)
+
+
+@pytest.mark.parametrize("d", [64, 160])
+def test_bf16_q_scale_convention(d):
+    """The reference's model path scales q by 1/sqrt(D) in q's dtype
+    (``repro/models/attention.py::attend``: ``qg * scale`` in bfloat16); the
+    port's attention (the kernel and its plain version) scales in float32.
+    At D = 64 the scale is a power of two and the scaled q is the same
+    bit for bit; the outputs differ only by float32 summation order (3 of
+    32,768 bf16 elements, by 2.4e-4, measured).  At D = 160 every element of
+    the scaled q differs (the reference rounds the scale and the product to
+    bfloat16), and the outputs differ in
+    30,964 of 81,920 elements by up to 0.0078 (two bf16 ulps at |o| < 2),
+    measured on these inputs: a convention, within the bf16 tolerance."""
+    rng = np.random.default_rng(d)
+    q = rng.standard_normal((2, 64, 4, d)).astype(np.float32)
+    k, v = (rng.standard_normal((2, 64, 2, d)).astype(np.float32) for _ in range(2))
+    qb, kb, vb = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    scale = 1.0 / math.sqrt(d)        # a Python float, weakly typed in JAX
+    with jax.disable_jit():
+        ref = _np(jattend(qb, kb, vb, causal=True))
+        ref_q = _np(qb * scale)
+    tq, tk, tv = (torch.from_numpy(_np(x)).to(torch.bfloat16) for x in (qb, kb, vb))
+    got = _np(tattend(tq, tk, tv, causal=True))
+    port_q = (tq.float() * scale).numpy()
+    diff = np.abs(got - ref)
+    if d == 64:
+        np.testing.assert_array_equal(ref_q, port_q)
+        assert diff.max() <= 2.0 ** -12 and (diff > 0).sum() <= 3
+    else:
+        assert (ref_q != port_q).all()
+        # the scale and the product, each rounded to bfloat16 (2^-8 apiece)
+        np.testing.assert_allclose(ref_q, port_q, rtol=2.0 ** -7, atol=0)
+        assert diff.max() == 0.0078125 and (diff > 0).sum() == 30_964
+        np.testing.assert_allclose(got, ref, **_tol("bfloat16"))
 
 
 @pytest.mark.parametrize("arch,dtype", [("hymba-1.5b", "float32"), ("hymba-1.5b", "bfloat16"),
@@ -284,7 +329,7 @@ def test_seeded_init_draws_the_reference_distributions():
     assert all(torch.equal(a, b) for a, b in zip(lm.parameters(), again.lm.parameters()))
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b", "stablelm-12b"])
 def test_serve_cli_runs_reduced_on_the_cpu(capsys, arch):
     assert serve_cli.main(["--arch", arch, "--device", "cpu", "--reduced",
                            "--batch", "2", "--prompt-len", "40", "--max-new", "4",

@@ -8,7 +8,11 @@ to each leaf's largest magnitude (the optimizer alone to 1e-6: it is
 elementwise with one global norm).  The flash backward (``_Flash``) is held
 against ``jax.grad`` of the reference's ``attend(impl="flash")``, whose
 ``custom_vjp`` it ports; ``train_loss`` against ``jax.value_and_grad`` of
-the reference's (its attention is ``masked_scan`` there, the same function).
+the reference's (its attention is ``masked_scan`` there, the same function;
+its scan and wkv6 are ``mixer_impl``'s ``"scan"`` or ``"chunked"``, which the
+port's one path matches both).  The scan's and wkv6's backwards
+(``_SsmScan``, ``_Wkv6``) are held against ``jax.grad`` of the reference's
+block forms, ``_chunked_selective_scan`` and ``_chunked_wkv``.
 """
 
 import jax
@@ -24,6 +28,8 @@ from repro.data.pipeline import TokenPipeline as JTokenPipeline
 from repro.models.api import build_model as jbuild_model
 from repro.models.attention import attend as jattend
 from repro.models.lm import chunked_xent as jchunked_xent
+from repro.models.rwkv import _chunked_wkv as j_chunked_wkv
+from repro.models.ssm import _chunked_selective_scan as j_chunked_selective_scan
 from repro.optim import adamw as jadamw
 from repro.parallel import compression as jcompression
 from repro.train.step import make_train_step as jmake_train_step
@@ -35,7 +41,11 @@ from repro_torch.kernels.rwkv6 import rwkv6_chunked
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked
 from repro_torch.models.api import build_model
 from repro_torch.models.attention import attend
-from repro_torch.models.lm import NO_GRAD_ITEM, chunked_xent
+from repro_torch.kernels import rwkv6 as rwkv6_kernel
+from repro_torch.kernels import ssm_scan as ssm_kernel
+from repro_torch.models.lm import chunked_xent
+from repro_torch.models.rwkv import _chunked_wkv, _Wkv6
+from repro_torch.models.ssm import _chunked_selective_scan, _SsmScan
 from repro_torch.models.weights import from_reference, to_reference
 from repro_torch.optim import adamw
 from repro_torch.parallel import compression
@@ -151,6 +161,14 @@ def test_chunked_xent_matches_reference(masked):
     ("tinyllama-1.1b", {}, 2048),        # the loss's and the backward's chunks of 1024
     ("qwen2-1.5b", {}, 64),              # qkv bias
     ("tinyllama-1.1b", {"sliding_window": 16, "attn_softcap": 20.0}, 64),
+    # the hybrid and rwkv families against both of the reference's mixers,
+    # and a ragged S (61: no multiple of the scan's 64, wkv6's 16 or 32)
+    ("hymba-1.5b", {}, 64),
+    ("hymba-1.5b", {"mixer_impl": "chunked"}, 128),
+    ("hymba-1.5b", {}, 61),
+    ("rwkv6-7b", {}, 64),
+    ("rwkv6-7b", {"mixer_impl": "chunked"}, 64),
+    ("rwkv6-7b", {}, 61),
 ])
 def test_train_loss_and_grads_match_reference(arch, overrides, seq):
     jmodel, params, model = _pair(arch, **overrides)
@@ -165,12 +183,13 @@ def test_train_loss_and_grads_match_reference(arch, overrides, seq):
         _close(leaf.grad, ref[key])
 
 
-def test_remat_policies_give_the_same_gradients():
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "hymba-1.5b", "rwkv6-7b"])
+def test_remat_policies_give_the_same_gradients(arch):
     """``none`` (every block recomputed), ``dots`` (weight products kept)
     and ``full`` (nothing recomputed) differ in memory, not in values; the
     model's own parameters (``trainable``) give the tree's gradients."""
-    _, params, _ = _pair("tinyllama-1.1b")
-    cfg = reduced(get_config("tinyllama-1.1b"))
+    _, params, _ = _pair(arch)
+    cfg = reduced(get_config(arch))
     batch = _tbatch(_batch(np.random.default_rng(5), cfg.vocab, 2, 64))
     grads = {}
     for policy in ("none", "dots", "full"):
@@ -183,25 +202,203 @@ def test_remat_policies_give_the_same_gradients():
             torch.testing.assert_close(g, grads["none"][key], atol=1e-6, rtol=1e-6)
     own = from_reference(params, cfg, device="cpu", dtype=torch.float32).trainable()
     own.train_loss(None, batch).backward()
+    # block j is layer i of group g
+    where = [(g, i) for g, gd in enumerate(own.lm.groups) for i in range(gd.n_layers)]
     for name, p in own.lm.named_parameters():
         parts = name.split(".")
-        if parts[0] == "blocks":      # tinyllama's layers are one group
-            key, i = "['groups'][0]" + "".join(f"[{x!r}]" for x in parts[2:]), int(parts[1])
+        if parts[0] == "blocks":
+            g, i = where[int(parts[1])]
+            key = f"['groups'][{g}]" + "".join(f"[{x!r}]" for x in parts[2:])
             want = grads["none"][key][i]
         else:
             want = grads["none"]["".join(f"[{x!r}]" for x in parts)]
         torch.testing.assert_close(p.grad, want, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b"])
-def test_families_without_a_backward_raise(arch):
-    model = build_model(reduced(get_config(arch)), device="cpu")
-    tree = to_reference(model)
-    batch = _tbatch(_batch(np.random.default_rng(0), model.cfg.vocab, 1, 16))
-    for params in (tree, None):
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            model.train_loss(params, batch)
-        assert NO_GRAD_ITEM in str(err.value)
+# --- the scan's and wkv6's backwards against the reference's block forms -----------
+
+def _scan_inputs(rng, b, s, h, p, n):
+    xh = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (0.01 + 0.19 * rng.random((b, s, h))).astype(np.float32)
+    decay = (0.7 + 0.299 * rng.random((b, s, h))).astype(np.float32)
+    bt, ct = (rng.standard_normal((b, s, n)).astype(np.float32) for _ in range(2))
+    return xh, dt, decay, bt, ct
+
+
+def _pad_steps(arrays, s_pad, ones=()):
+    """Pad dim 1 to ``s_pad`` with zeros (ones for the arrays at ``ones``):
+    the reference's block forms take whole chunks only."""
+    out = []
+    for i, a in enumerate(arrays):
+        widths = [(0, 0)] * a.ndim
+        widths[1] = (0, s_pad - a.shape[1])
+        out.append(np.pad(a, widths, constant_values=1.0 if i in ones else 0.0))
+    return out
+
+
+def _scan_grads(args, w, s_pad):
+    """The reference's gradients of sum(y * w) for its block form from a
+    zero state, on inputs padded to whole chunks, cut back to S."""
+    s = args[0].shape[1]
+    b, _, h, p = args[0].shape
+    h0 = np.zeros((b, h, p, args[3].shape[-1]), np.float32)
+    padded = _pad_steps(args, s_pad, ones=(2,))
+    wp = _pad_steps([w], s_pad)[0]
+    f = lambda *a: jnp.sum(j_chunked_selective_scan(*a, h0, 64)[0] * wp)
+    return [np.asarray(g)[:, :s] for g in jax.grad(f, argnums=(0, 1, 2, 3, 4))(*padded)]
+
+
+def _port_grads(fn, args, w):
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    y, _ = fn(*leaves)
+    (y * torch.from_numpy(w)).sum().backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("s,clamp", [(128, False), (100, False), (128, True)])
+def test_ssm_scan_backward_matches_reference(s, clamp):
+    """``_SsmScan`` (the wrapper forward, the block form's backward) against
+    ``jax.grad`` of ``_chunked_selective_scan``: whole chunks, a ragged S,
+    and decays at 0 (the 1e-30 clamp), one per chunk, whose log-decay
+    gradient is 0 on both sides."""
+    rng = np.random.default_rng(s + clamp)
+    args = list(_scan_inputs(rng, 2, s, 3, 8, 4))
+    if clamp:
+        args[2][:, [10, 70]] = 0.0
+    w = rng.standard_normal(args[0].shape).astype(np.float32)
+    want = _scan_grads(args, w, -(-s // 64) * 64)
+    got = _port_grads(_SsmScan.apply, args, w)
+    for g, ref in zip(got, want):
+        assert torch.isfinite(g).all()
+        _close(g, ref)
+    # the forward is the wrapper's, equal to the ported block form
+    with torch.no_grad():
+        y_fn, h_fn = _SsmScan.apply(*(torch.from_numpy(a) for a in args))
+        if s % 64 == 0:
+            h0 = torch.zeros(2, 3, 8, 4)
+            y_bf, h_bf = _chunked_selective_scan(*(torch.from_numpy(a) for a in args), h0, 64)
+            _close(y_fn, y_bf.numpy())
+            _close(h_fn, h_bf.numpy())
+
+
+def _wkv_inputs(rng, b, s, h, kd):
+    r, k, v = (0.5 * rng.standard_normal((b, s, h, kd)).astype(np.float32) for _ in range(3))
+    w = np.exp(-np.exp(-1.5 + rng.random((b, s, h, kd)))).astype(np.float32)
+    u = (0.125 * rng.standard_normal((h, kd))).astype(np.float32)
+    return [r, k, v, w, u]
+
+
+def _wkv_grads(args, wy, s_pad):
+    r, k, v, w, u = args
+    b, s, h, kd = r.shape
+    S0 = np.zeros((b, h, kd, v.shape[-1]), np.float32)
+    rp, kp, vp, wp = _pad_steps([r, k, v, w], s_pad, ones=(3,))
+    wyp = _pad_steps([wy.reshape(b, s, -1)], s_pad)[0]
+    f = lambda r, k, v, w, u: jnp.sum(j_chunked_wkv(r, k, v, w, u, S0, 16)[0] * wyp)
+    g = jax.grad(f, argnums=(0, 1, 2, 3, 4))(rp, kp, vp, wp, u)
+    return [np.asarray(x)[:, :s] for x in g[:4]] + [np.asarray(g[4])]
+
+
+@pytest.mark.parametrize("s,clamp", [(64, False), (50, False), (64, True)])
+def test_wkv6_backward_matches_reference(s, clamp):
+    """``_Wkv6`` (the wrapper forward, the block form's backward) against
+    ``jax.grad`` of ``_chunked_wkv`` at its chunk of 16: whole chunks, a
+    ragged S, and decays at 0 (the 1e-30 clamp), at most one per chunk and
+    channel."""
+    rng = np.random.default_rng(s + clamp)
+    args = _wkv_inputs(rng, 2, s, 3, 8)
+    if clamp:
+        args[3][:, [5, 21, 40], 1] = 0.0
+    wy = rng.standard_normal(args[2].shape).astype(np.float32)
+    want = _wkv_grads(args, wy, -(-s // 16) * 16)
+    got = _port_grads(_Wkv6.apply, args, wy)
+    for g, ref in zip(got, want):
+        assert torch.isfinite(g).all()
+        _close(g, ref)
+    if s % 16 == 0:
+        with torch.no_grad():
+            y_fn, S_fn = _Wkv6.apply(*(torch.from_numpy(a) for a in args))
+            S0 = torch.zeros(2, 3, 8, 8)
+            y_bf, S_bf = _chunked_wkv(*(torch.from_numpy(a) for a in args), S0, 16)
+            _close(y_fn.reshape(2, s, -1), y_bf.numpy())
+            _close(S_fn, S_bf.numpy())
+
+
+def test_wkv6_backward_on_clamped_decays_repairs_the_references_nan():
+    """The clamped-decay input of the card's ``test_rwkv6_kernel_clamped_
+    decay_matches_plain`` (5% of decays at 1e-30 and a run of 40 clamped
+    steps across step 128; B=2, H=4, S=1000, K=V=64).  In the reference's
+    ``_chunked_wkv`` a masked (s >= t) exponent of a chunk with two or more
+    clamped steps overflows to inf, and ``where``'s backward multiplies it by
+    0: the w gradient of every such chunk is NaN.  The port takes masked
+    exponents at -inf: every gradient is finite, and r, k, v, u and the w
+    gradient wherever the reference's is finite agree with the reference
+    (w at exactly the clamp aside: there the derivative of ``max`` is a
+    convention, half in JAX, whole in torch)."""
+    rng = np.random.default_rng(12)
+    args = _wkv_inputs(rng, 2, 1000, 4, 64)
+    hit = rng.random(args[3].shape) < 0.05
+    args[3] = np.where(hit, np.float32(1e-30), args[3])
+    args[3][:, 108:148] = 1e-30
+    wy = rng.standard_normal(args[2].shape).astype(np.float32)
+    want = _wkv_grads(args, wy, 1008)
+    got = _port_grads(_Wkv6.apply, args, wy)
+    bad = ~np.isfinite(want[3])
+    assert bad[:, 112:144].all() and bad.mean() > 0.2, bad.mean()   # the run's whole chunks
+    bad |= args[3] <= 1e-30
+    assert all(np.isfinite(x).all() for i, x in enumerate(want) if i != 3)
+    for i, (g, ref) in enumerate(zip(got, want)):
+        assert torch.isfinite(g).all(), i
+        if i == 3:
+            g, ref = g.numpy()[~bad], ref[~bad]
+        _close(g, ref)
+
+
+def test_ssm_scan_backward_on_clamped_decays_repairs_the_references_nan():
+    """Two decays at 0 (clamped to 1e-30) in one chunk of 64: the reference's
+    masked exponent across both is exp(+138) = inf, and its decay gradient
+    is NaN over the whole chunk; the port's is finite, 0 at the clamped
+    steps, and agrees wherever the reference's is finite."""
+    rng = np.random.default_rng(3)
+    args = list(_scan_inputs(rng, 2, 128, 3, 8, 4))
+    args[2][:, [20, 40]] = 0.0
+    w = rng.standard_normal(args[0].shape).astype(np.float32)
+    want = _scan_grads(args, w, 128)
+    got = _port_grads(_SsmScan.apply, args, w)
+    bad = ~np.isfinite(want[2])
+    assert bad[:, :64].all() and not bad[:, 64:].any()
+    for i, (g, ref) in enumerate(zip(got, want)):
+        assert torch.isfinite(g).all(), i
+        if i == 2:
+            assert (g[:, [20, 40]] == 0).all()
+            g, ref = g.numpy()[~bad], ref[~bad]
+        _close(g, ref)
+
+
+def test_backwards_never_call_the_plain_versions(monkeypatch):
+    """The scan's and wkv6's backwards are the block forms' gradients, not
+    autograd through the kernels' plain twins: on the CPU each forward calls
+    the plain version once (the wrapper's own choice) and the backward never."""
+    calls = {"ssm": 0, "wkv": 0}
+
+    def counted(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(ssm_kernel, "ssm_scan_chunked_plain",
+                        counted("ssm", ssm_kernel.ssm_scan_chunked_plain))
+    monkeypatch.setattr(rwkv6_kernel, "rwkv6_chunked_plain",
+                        counted("wkv", rwkv6_kernel.rwkv6_chunked_plain))
+    rng = np.random.default_rng(0)
+    for name, fn, args in (("ssm", _SsmScan.apply, _scan_inputs(rng, 1, 70, 2, 4, 3)),
+                           ("wkv", _Wkv6.apply, _wkv_inputs(rng, 1, 40, 2, 4))):
+        leaves = [torch.tensor(a, requires_grad=True) for a in args]
+        y, _ = fn(*leaves)
+        assert calls[name] == 1
+        y.sum().backward()
+        assert calls[name] == 1 and all(t.grad is not None for t in leaves)
 
 
 def test_kernel_wrappers_refuse_inputs_that_need_a_gradient():
@@ -286,9 +483,11 @@ def test_quantize_is_exact():
     assert sorted(out) == ["a", "b"] and out["b"][0].shape == (4,)
 
 
-@pytest.mark.parametrize("accum,compress", [(1, False), (2, False), (1, True), (2, True)])
-def test_train_step_matches_reference(accum, compress):
-    jmodel, params, model = _pair("tinyllama-1.1b")
+@pytest.mark.parametrize("arch,accum,compress", [
+    ("tinyllama-1.1b", 1, False), ("tinyllama-1.1b", 2, False), ("tinyllama-1.1b", 1, True),
+    ("tinyllama-1.1b", 2, True), ("hymba-1.5b", 2, False), ("rwkv6-7b", 2, False)])
+def test_train_step_matches_reference(arch, accum, compress):
+    jmodel, params, model = _pair(arch)
     jcfg = jadamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
     cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
     jstep = jax.jit(jmake_train_step(jmodel, jcfg, accum_steps=accum, compress_grads=compress))
@@ -310,11 +509,18 @@ def test_train_step_matches_reference(accum, compress):
     # steps.  With compression, a gradient 1 ulp apart can round to the next
     # int8 quantum, which moves that element's steps by up to lr each: every
     # element stays within 3 lr, and all but 1% of them within 3 x 2^-8 lr.
+    # Where two microbatches' gradients nearly cancel, their float32 mean is
+    # known only to the rounding of the parts, which can exceed one bf16 ulp
+    # of the mean, and such an element's Adam step (g / (|g| + eps)) moves by
+    # a part of lr: the hybrid's reduced tree holds 3 such elements of
+    # 133,720 (0.0223 lr apart at most).  For the hybrid and rwkv cases every
+    # element stays within 3 lr, and all but 1e-4 of them within 3 x 2^-8 lr.
     near = 3 * 2.0 ** -8 * cfg.lr
     diff = np.concatenate([np.abs(got.numpy() - np.asarray(want)).ravel()
                            for got, want in zip(tree_leaves(tp), jax.tree.leaves(jp))])
-    assert diff.max() <= (3 * cfg.lr if compress else near), diff.max()
-    assert (diff > near).mean() <= 1e-2, (diff > near).mean()
+    loose = compress or arch != "tinyllama-1.1b"
+    assert diff.max() <= (3 * cfg.lr if loose else near), diff.max()
+    assert (diff > near).mean() <= (1e-2 if compress else 1e-4), (diff > near).mean()
     assert all(not t.requires_grad for t in tree_leaves(tp))
 
 
