@@ -25,9 +25,13 @@ together), and then:
    heads of 64, full and window 1024, bfloat16 and float32, plus a ragged
    S=1000, a bfloat16 full-causal D=128 case with 12 query and 2 KV
    heads, tinyllama-1.1b's training shape, 32 query and 4 KV heads,
-   causal, bfloat16 and float32, and stablelm-12b's prefill shape, 32 query
+   causal, bfloat16 and float32, stablelm-12b's prefill shape, 32 query
    and 8 KV heads of 160, causal, bfloat16 and float32, on the CUDA-core
-   kernel at D = 160; every case also checks the log-sum-exp
+   kernel at D = 160, whisper-medium's encoder (B=8, S=T=1500, 16 heads of
+   64, bidirectional, bfloat16 and float32) and cross-attention (S=384,
+   T=1500), mixtral-8x22b's windowed prefill (B=2, S=T=8192, 48 query and 8
+   KV heads of 128, window 4096) and grok-1-314b's softcapped one (B=8,
+   S=T=2048, 48 / 8 heads of 128, softcap 30); every case also checks the log-sum-exp
    output against the plain version, ``o`` bit-identical with and without
    it, and its cost; the training shape also times the torch-op attention
    backward and SDPA's), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
@@ -80,30 +84,41 @@ together), and then:
    ``serve_tier_path`` JSON line;
    on paths 3, 4a, 4b and 4c every fused OCC round's ``validate_sequence``
    is held against its plain version on the round's own inputs;
-5. drives the LLM serve path for ``hymba-1.5b``, ``rwkv6-7b`` and then
-   ``stablelm-12b``, each at full width and depth in bfloat16 with seeded
-   random weights: one ``ServeEngine`` (cache 4096) answering a warm-up and
-   a timed request of 8 prompts x 2048 tokens and one of 2 x 1000 tokens,
-   64 new tokens each; asserts finite logits and one launch per layer and
-   prefill of each of the arch's kernels (flash attention and the scan for
-   hymba, wkv6 for rwkv6, flash attention at head dim 160 for stablelm)
-   and none of the others, and profiles one more prefill and 8 decode steps;
-6. checks each serve path at full width and depth in float32 (TF32 off;
-   the model widened in place): a prefill of 2048 tokens plus 16 decode
-   steps against one prefill of all 2064;
+5. drives the LLM serve path (``SERVE_RUNS``) for ``hymba-1.5b``,
+   ``rwkv6-7b``, ``stablelm-12b``, ``whisper-medium``,
+   ``llava-next-mistral-7b`` and then ``mixtral-8x22b``, each at full width
+   (rwkv6-7b at 16 of its 32 layers, stablelm-12b at 20 of 40, mixtral at
+   8 of 56, the rest at full depth) in bfloat16 with seeded random weights:
+   one ``ServeEngine`` answering a warm-up request of 8 prompts (8 new
+   tokens), a timed one of 8 and a ragged one of 2 (64 new tokens each)
+   (8 x 2048 tokens and 2 x 1000, cache 4096; whisper: 1,500 frames and
+   384 tokens, 2 x 200, in its 448-token context; llava: 576 patch
+   embeddings before 1,472 tokens, 2 x 424); asserts finite logits and,
+   per prefill, each of the arch's kernels once per layer (flash attention
+   once per encoder layer and twice per decoder layer for whisper: 72) and
+   none of the others, and profiles one more prefill and 8 decode steps;
+6. checks each serve path in float32 (TF32 off): at the served depth,
+   the model widened in place, a prefill of the timed prompt's first row
+   plus 16 decode steps against one prefill of all of them; mixtral, whose
+   MoE is not continuation-exact (ROADMAP Queue C), at 2 layers: its
+   prefill logits through the flash kernel against the same model through
+   ``flash_attention_plain``, and the continuation printed beside the
+   dropped (token, slot) counts;
 6a. trains at full width (``train_path``), one arch at a time:
-   tinyllama-1.1b and hymba-1.5b at full depth, rwkv6-7b at 8 of its 32
-   layers: a float32 gradient oracle (each kernel's training Function,
-   ``_Flash``, ``_SsmScan``, ``_Wkv6``, against autograd through its plain
-   version, 1 x 2048 tokens, TF32 off); then, in deterministic mode, bf16
-   weights, fp32 AdamW moments, 8 x 2048 tokens a step, each step
-   launching each of the arch's kernels twice per layer (forward and
-   recompute) and no other kernel.  tinyllama and hymba run steps 0-5 with
+   tinyllama-1.1b and whisper-medium at full depth, hymba-1.5b at 17 of its
+   32 layers, rwkv6-7b at 8 of 32, mixtral-8x22b at 1 of 56: a float32 gradient
+   oracle (each kernel's training Function, ``_Flash``, ``_SsmScan``,
+   ``_Wkv6``, against autograd through its plain version, 1 x 2048 tokens,
+   whisper 1 x 448 over 1,500 frames, TF32 off); then, in deterministic
+   mode, bf16 weights, fp32 AdamW moments, 8 x 2048 tokens a step (whisper
+   8 x 448 over 1,500 frames), each step launching each of the arch's
+   kernels twice per forward call (forward and recompute) and no other
+   kernel.  tinyllama and hymba run steps 0-5 with
    the Poplar journal on 4 SSD lanes (step 1 saved and committed, step 3
    saved and crashed at once, a torn frame appended), a restore whose every
    leaf's SHA-256 equals the saved step's and a fresh model resumed to step
    5 with losses and final digests equal to the first run's bit for bit;
-   rwkv6 runs 3 steps; each then one profiled step (device ms by group:
+   rwkv6, whisper and mixtral run 3 steps; each then one profiled step (device ms by group:
    the kernels' forwards, the torch-op backwards, GEMMs, the optimizer; the
    card's busy share); one ``train_path`` JSON line per arch;
 7. asserts that every kernel launched on its own path (each path's counts
@@ -183,10 +198,12 @@ from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.journal import PoplarCheckpointManager, restore_latest, to_pytree
 from repro_torch.models import attention as attention_mod
+from repro_torch.models import encdec as encdec_mod
+from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.api import build_model
+from repro_torch.models.api import attention_calls, build_model, draw_extras
 from repro_torch.models.serve_llm import ServeEngine
 from repro_torch.models.weights import load_reference, to_reference
 from repro_torch.optim import adamw
@@ -265,18 +282,56 @@ SERVE_TRACE_STEP = 256
 SERVE_COUNTERS = (("serve.acked", "acked"), ("serve.rejected", "rejected"),
                   ("serve.aborted", "aborted"), ("serve.retries", "retries"))
 LLM_KERNELS = ("flash_attention", "ssm_scan_chunked", "rwkv6_chunked")
-# the LLM serve paths, each with the kernels its prefill launches once per
-# layer: hymba-1.5b at full width (32 layers, d_model 1600, 25 query / 5 KV
-# heads of 64, window 1024 with full attention at layers 0, 16 and 31, a
-# 25-head Mamba branch of state 16), then rwkv6-7b (32 layers, d_model
-# 4096, 64 wkv heads of 64, d_ff 14336, vocab 65536), then stablelm-12b (40
-# layers, d_model 5120, 32 query / 8 KV heads of 160, d_ff 13824, vocab
-# 100352, LayerNorm: the flash kernel at head dim 160)
-SERVE_ARCHS = (("hymba-1.5b", ("flash_attention", "ssm_scan_chunked")),
-               ("rwkv6-7b", ("rwkv6_chunked",)),
-               ("stablelm-12b", ("flash_attention",)))
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, CACHE_LEN = 8, 2048, 64, 4096
+WARM_NEW = 8          # the warm-up request's new tokens: it only warms the path
 RAGGED_BATCH, RAGGED_PROMPT = 2, 1000
+WHISPER_PROMPT, WHISPER_CONTEXT = 384, 448   # whisper's decoder context: 448 tokens
+LLAVA_PATCHES = get_config("llava-next-mistral-7b").vlm.n_patches
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeRun:
+    arch: str
+    kernels: tuple             # launched on every prefill (see _per_forward), and nothing else
+    prompt: int = SERVE_PROMPT  # tokens of the warm-up and timed requests (SERVE_BATCH prompts)
+    ragged: int = RAGGED_PROMPT  # tokens of the ragged request (RAGGED_BATCH prompts)
+    cache_len: int = CACHE_LEN
+    layers: int = 0            # a depth cut (0: full depth), and why
+    why_layers: str = ""
+    oracle_layers: int = 0     # the float32 oracle's own depth (0: the served depth)
+
+
+# the LLM serve paths, at full width, each with the kernels its prefill
+# launches: hymba-1.5b (32 layers, d_model 1600, 25 query / 5 KV heads of
+# 64, window 1024 with full attention at layers 0, 16 and 31, a 25-head
+# Mamba branch of state 16), rwkv6-7b (16 of 32 layers, d_model 4096, 64 wkv
+# heads of 64, d_ff 14336, vocab 65536), stablelm-12b (20 of 40 layers, d_model 5120, 32
+# query / 8 KV heads of 160, d_ff 13824, vocab 100352, LayerNorm: the flash
+# kernel at head dim 160), whisper-medium (24 encoder and 24 decoder layers,
+# d_model 1024, 16 heads of 64, 1,500 frames, a 384-token prompt in its
+# 448-token context: the encoder's bidirectional, the decoder's causal and
+# its cross-attention flash calls), llava-next-mistral-7b (32 layers,
+# d_model 4096, 32 query / 8 KV heads of 128, 576 patch embeddings before
+# 1,472 text tokens: 2,048 positions) and mixtral-8x22b (8 of 56 layers,
+# d_model 6144, 48 query / 8 KV heads of 128, window 4096, 8 experts of
+# d_ff 16384, top 2)
+SERVE_RUNS = (
+    ServeRun("hymba-1.5b", ("flash_attention", "ssm_scan_chunked")),
+    ServeRun("rwkv6-7b", ("rwkv6_chunked",), layers=16, why_layers=(
+        "the smoke's 1,200-s limit, the build included: with every path at full depth it took "
+        "921-1,148 s on an H100")),
+    ServeRun("stablelm-12b", ("flash_attention",), layers=20, why_layers=(
+        "the smoke's 1,200-s limit, the build included: with every path at full depth it took "
+        "921-1,148 s on an H100")),
+    ServeRun("whisper-medium", ("flash_attention",), prompt=WHISPER_PROMPT, ragged=200,
+             cache_len=WHISPER_CONTEXT),
+    ServeRun("llava-next-mistral-7b", ("flash_attention",), prompt=SERVE_PROMPT - LLAVA_PATCHES,
+             ragged=RAGGED_PROMPT - LLAVA_PATCHES),
+    ServeRun("mixtral-8x22b", ("flash_attention",), layers=8, oracle_layers=2, why_layers=(
+        "about 5.0 GB of bf16 weights a layer (140.6 B parameters over 56 layers): the 80-GB card "
+        "holds 8 layers beside the 8 x 2048-token prefill's MoE activations; the float32 oracle "
+        "doubles the bytes, so it runs 2 layers")),
+)
 ORACLE_STEPS = 16
 # kernel vs plain on the card, as (atol, rtol): both compute the scores, the
 # softmax and the sums in float32 from the same inputs in another order.
@@ -315,6 +370,8 @@ class TrainRun:
     why_layers: str = ""
     # the gradient oracle's end-to-end side is gated too (see run_grad_oracle)
     oracle_end_to_end: bool = True
+    batch: int = TRAIN_BATCH   # rows a step
+    seq: int = TRAIN_SEQ       # tokens a row (an encoder-decoder's decoder tokens)
 
 
 TRAIN_RUNS = (
@@ -325,10 +382,11 @@ TRAIN_RUNS = (
     # slice of w_gate's fp32 moment (22 x 2048 x 5632 x 4 B / 22), is 46.1 MB,
     # and a record larger than a buffer raises.
     TrainRun("tinyllama-1.1b", ("flash_attention",), 6, (1, 3), (4, 22, 64 << 20)),
-    # hymba-1.5b (arXiv:2411.13676 / the Hugging Face config), full depth, the
-    # same run.  Its groups stack 1/15/1/14/1 layers and a leaf is sliced
-    # along its stacked dim only when that dim holds at least n_slices: at 14
-    # slices the largest record is two layers of an MLP weight's fp32 moment
+    # hymba-1.5b (arXiv:2411.13676 / the Hugging Face config), the same run
+    # at 17 of its 32 layers (full attention at layers 0 and 16: groups of
+    # 1/15/1 layers; at full depth 1/15/1/14/1).  A leaf is sliced along its
+    # stacked dim only when that dim holds at least n_slices: at 14 slices
+    # the largest record is two layers of an MLP weight's fp32 moment
     # (2 x 1600 x 5504 x 4 B = 70.5 MB), under 96-MiB buffers.
     # Its full-depth float32 gradients move far more than tinyllama's under
     # one float32 rounding of a forward output (the oracle's side (c); PERF.md,
@@ -337,7 +395,9 @@ TRAIN_RUNS = (
     # kernels' forward values is gated; the end-to-end reading is printed
     # beside that floor.
     TrainRun("hymba-1.5b", ("flash_attention", "ssm_scan_chunked"), 6, (1, 3),
-             (4, 14, 96 << 20), oracle_end_to_end=False),
+             (4, 14, 96 << 20), oracle_end_to_end=False, layers=17, why_layers=(
+                 "the smoke's 1,200-s limit, the build included: with every path at full depth "
+                 "it took 921-1,148 s on an H100, hymba's training 191-227 s of it")),
     # rwkv6-7b (arXiv:2404.05892 / the Hugging Face config) at 8 of its 32
     # layers: three steps, no journal (its tree goes through the journal in
     # the CPU tests, and the journal code is hymba's)
@@ -345,6 +405,18 @@ TRAIN_RUNS = (
         "the optimizer holds the old and the new parameters and moments (22 B a parameter "
         "with bf16 gradients) and one stacked leaf's float32 temporaries: 7.53 B parameters "
         "need ~166 GB at full depth, and 10 layers (2.72 B) already ~79 GB of the 80-GB card")),
+    # whisper-medium (arXiv:2212.04356 / the Hugging Face config), full depth:
+    # 24 encoder and 24 decoder layers, 8 rows of 448 decoder tokens (its
+    # context) over 1,500 frames, three steps, no journal: the encoder's
+    # bidirectional flash calls and the decoder's causal and cross ones
+    # (S = 448 over T = 1,500) forward and through _Flash's backward
+    TrainRun("whisper-medium", ("flash_attention",), 3, seq=WHISPER_CONTEXT),
+    # mixtral-8x22b (arXiv:2401.04088 / the Hugging Face config) at 1 of its
+    # 56 layers, 8 x 2048 tokens, three steps, no journal
+    TrainRun("mixtral-8x22b", ("flash_attention",), 3, layers=1, why_layers=(
+        "the optimizer holds the old and the new parameters and moments (22 B a parameter "
+        "with bf16 gradients): one layer and the embeddings are 2.9 B parameters, ~64 GB; "
+        "a second layer adds 2.5 B (~55 GB)")),
 )
 # the full-width float32 gradient oracle: _Flash (the kernel's forward and
 # the torch-op backward) against autograd through the plain attention, each
@@ -694,14 +766,38 @@ def _close(got, want, dtype):
     return err
 
 
-def _attn_pairs(s: int, t: int, window) -> int:
-    """Unmasked (query, key) pairs of a causal attention: the work this
-    mask needs."""
+def _attn_pairs(s: int, t: int, window, causal: bool = True) -> int:
+    """Unmasked (query, key) pairs of an attention: the work this mask
+    needs (bidirectional: every pair)."""
+    if not causal:
+        return s * t
     q = np.arange(s)
     n = np.minimum(q + 1, t)
     if window is not None:
         n = np.minimum(n, window)
     return int(n.sum())
+
+
+# the plain version holds the whole (B, Hq, S, T) float32 score matrix a few
+# times over; past this size it runs one batch row and KV head at a time
+PLAIN_SCORES_BYTES = 8 << 30
+
+
+def _flash_plain(q, k, v, **kw):
+    """``flash_attention_plain``, cut into (batch row, KV head) pieces when
+    the scores would pass PLAIN_SCORES_BYTES: the same function, cut along
+    dims it never mixes (mixtral's 8192-token window case)."""
+    b, hq, s, _ = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if b * hq * s * t * 4 <= PLAIN_SCORES_BYTES:
+        return flash_attention_plain(q, k, v, **kw)
+    g = hq // hkv
+    rows = [[flash_attention_plain(q[i:i + 1, j * g:(j + 1) * g], k[i:i + 1, j:j + 1],
+                                   v[i:i + 1, j:j + 1], **kw) for j in range(hkv)] for i in range(b)]
+    if not kw.get("return_lse"):
+        return torch.cat([torch.cat(r, dim=1) for r in rows], dim=0)
+    return tuple(torch.cat([torch.cat([piece[n] for piece in r], dim=1) for r in rows], dim=0)
+                 for n in range(2))
 
 
 def _flash_train_timings(q, k, v, out, lse):
@@ -710,8 +806,8 @@ def _flash_train_timings(q, k, v, out, lse):
     one seeded output gradient."""
     gen = torch.Generator(device=q.device).manual_seed(1)
     do = torch.randn(out.shape, generator=gen, device=q.device).to(out.dtype)
-    qs, ks, vs, os_, dos = (x.transpose(1, 2) for x in (q, k, v, out, do))   # (B, S, H, D)
-    bwd_ms = _median_ms(lambda: attention_mod._flash_bwd(qs, ks, vs, os_, lse, dos, True, None, None),
+    qs, ks, vs, dos = (x.transpose(1, 2) for x in (q, k, v, do))   # (B, S, H, D)
+    bwd_ms = _median_ms(lambda: attention_mod._flash_bwd(qs, ks, vs, lse, dos, True, None, None),
                         reps=5, warmup=1)
     leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
     ref = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
@@ -719,40 +815,55 @@ def _flash_train_timings(q, k, v, out, lse):
     return dict(bwd_ms=bwd_ms, sdpa_bwd_ms=sdpa_bwd_ms)
 
 
-def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64, train=False):
+def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64, train=False, t=None,
+                causal=True, softcap=None):
+    t = s if t is None else t
     # the model's (B, S, H, D) activations, handed over as (B, H, S, D) views
     q = torch.randn(b, s, hq, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
-    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
-    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
-    got = flash_attention_fwd(q, k, v, window=window)
-    with_lse, lse = flash_attention_fwd(q, k, v, window=window, return_lse=True)
+    k = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    v = torch.randn(b, t, hkv, d, generator=gen, device=dev).to(dtype).transpose(1, 2)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = flash_attention_fwd(q, k, v, **kw)
+    with_lse, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
     torch.cuda.synchronize()
     assert torch.equal(with_lse, got), "flash_attention: o differs when lse is asked for"
-    want, want_lse = flash_attention_plain(q, k, v, window=window, return_lse=True)
+    want, want_lse = _flash_plain(q, k, v, return_lse=True, **kw)
     err = _close(got, want, dtype)
     lse_err = _close(lse, want_lse, torch.float32)
+    del want, want_lse
     esz = q.element_size()
-    nbytes = esz * (2 * b * hq * s * d + 2 * b * hkv * s * d)
-    flops = 4 * d * b * hq * _attn_pairs(s, s, window)
+    nbytes = esz * (2 * b * hq * s * d + 2 * b * hkv * t * d)
+    flops = 4 * d * b * hq * _attn_pairs(s, t, window, causal)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    if window is None:
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    if softcap is not None:
+        lib, library = None, "none: SDPA takes no softcap"
+    elif not causal:
+        lib, library = (lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True),
+                        "SDPA, no mask")
+    elif window is None:
+        lib, library = (lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                               enable_gqa=True), "SDPA is_causal")
     else:
         pos = torch.arange(s, device=dev)
         mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+        lib, library = (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                               enable_gqa=True),
+                        "SDPA, boolean window mask")
     extra = _flash_train_timings(q, k, v, with_lse, lse) if train else {}
+    shape = f"B={b} S={s} T={t} Hq={hq} Hkv={hkv} D={d} {'causal' if causal else 'bidirectional'}"
+    shape += f" window={window}" + (f" softcap={softcap}" if softcap is not None else "")
     return dict(
         name="flash_attention", max_abs_err=err, tol=LLM_TOL[dtype], lse_max_abs_err=lse_err,
-        shape=f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} window={window} {str(dtype)[6:]}",
-        ms=_median_ms(lambda: flash_attention_fwd(q, k, v, window=window)),
-        lse_ms=_median_ms(lambda: flash_attention_fwd(q, k, v, window=window, return_lse=True)),
+        shape=f"{shape} {str(dtype)[6:]}",
+        ms=_median_ms(lambda: flash_attention_fwd(q, k, v, **kw)),
+        lse_ms=_median_ms(lambda: flash_attention_fwd(q, k, v, return_lse=True, **kw)),
         lse_device_ms=_per_call_device_ms(
-            lambda: flash_attention_fwd(q, k, v, window=window, return_lse=True), 5),
+            lambda: flash_attention_fwd(q, k, v, return_lse=True, **kw), 5),
         **extra,
-        device_ms=_per_call_device_ms(lambda: flash_attention_fwd(q, k, v, window=window), 5),
-        plain_ms=_median_ms(lambda: flash_attention_plain(q, k, v, window=window), reps=5),
-        bound=_bound(nbytes, flops, peak), library_ms=_median_ms(lib),
+        device_ms=_per_call_device_ms(lambda: flash_attention_fwd(q, k, v, **kw), 5),
+        plain_ms=_median_ms(lambda: _flash_plain(q, k, v, **kw), reps=5),
+        bound=_bound(nbytes, flops, peak), library_ms=None if lib is None else _median_ms(lib),
+        library=library,
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:100",
     )
@@ -843,6 +954,35 @@ def _rwkv6_case(gen, b, s, dtype, dev):
     )
 
 
+def family_flash_cases(gen, dev):
+    """The flash kernel in the encoder-decoder, MoE and VLM families' prefill
+    configurations: whisper-medium's encoder (16 heads of 64 over 1,500
+    frames, bidirectional: the last 64-key tile holds 28 keys) in both types
+    and its cross-attention (384 decoder queries over the 1,500 frames);
+    llava-next-mistral-7b's prefill (32 query / 8 KV heads of 128, causal,
+    576 patches and 1,472 tokens: 2,048 positions); mixtral-8x22b's prefill
+    as its serve path runs it (48 query / 8 KV heads of 128, 2,048 tokens
+    under its 4,096-token window) and its window in force (4,096 over 8,192
+    tokens); grok-1-314b's softcapped prefill (48 / 8 heads of 128, softcap
+    30).  Each bfloat16 case but the 8,192-token one is its serve path's
+    shape."""
+    frames = get_config("whisper-medium").enc_dec.enc_seq
+    window = get_config("mixtral-8x22b").sliding_window
+    cases = [dict(_flash_case(gen, SERVE_BATCH, frames, None, dt, dev, hq=16, hkv=16, d=64,
+                              causal=False), path="whisper-medium")
+             for dt in (torch.bfloat16, torch.float32)]
+    cases.append(dict(_flash_case(gen, SERVE_BATCH, WHISPER_PROMPT, None, torch.bfloat16, dev,
+                                  hq=16, hkv=16, d=64, t=frames, causal=False),
+                      path="whisper-medium"))
+    cases.append(dict(_flash_case(gen, SERVE_BATCH, SERVE_PROMPT, None, torch.bfloat16, dev,
+                                  hq=32, hkv=8, d=128), path="llava-next-mistral-7b"))
+    cases += [dict(_flash_case(gen, b, s, window, torch.bfloat16, dev, hq=48, hkv=8, d=128),
+                   path="mixtral-8x22b") for b, s in ((SERVE_BATCH, SERVE_PROMPT), (2, 8192))]
+    cases.append(_flash_case(gen, SERVE_BATCH, SERVE_PROMPT, None, torch.bfloat16, dev, hq=48,
+                             hkv=8, d=128, softcap=get_config("grok-1-314b").attn_softcap))
+    return cases
+
+
 def check_llm_kernels(seed: int):
     """Every case at its serve path's prefill shapes; returns all cases,
     the main path's case of each kernel first (attention: bfloat16 with the
@@ -866,6 +1006,7 @@ def check_llm_kernels(seed: int):
     # the CUDA-core kernel at D = 160 in both types
     for dt in (torch.bfloat16, torch.float32):
         cases.append(_flash_case(gen, b, s, None, dt, dev, hq=32, hkv=8, d=160))
+    cases += family_flash_cases(gen, dev)
     cases.append(_ssm_case(gen, b, s, torch.float32, dev))
     cases.append(_ssm_case(gen, b, s, torch.bfloat16, dev))
     cases.append(_ssm_case(gen, RAGGED_BATCH, RAGGED_PROMPT, torch.float32, dev))
@@ -2118,23 +2259,60 @@ def run_serve_tier_path(workdir, seed, smi):
 
 # --- phases 5-6: the LLM serve path ------------------------------------------
 
-def run_serve_path(arch: str, kernels, seed: int, smi: str):
-    """``arch`` at full width and depth in bfloat16: a warm-up request, the
-    timed one, and a ragged one through one ServeEngine; each prefill must
-    launch each of ``kernels`` once per layer and no other kernel.
-    Returns the measurements and the bfloat16 model."""
+def _per_forward(cfg, name: str) -> int:
+    """Launches of kernel ``name`` in one forward of ``cfg``'s model: the
+    flash kernel once per attention call (``attention_calls``), the scan and
+    wkv6 kernels once per layer."""
+    return attention_calls(cfg) if name == "flash_attention" else cfg.n_layers
+
+
+def _extras(cfg, rng, b: int, dev) -> dict:
+    """``draw_extras`` on the card in bfloat16, as the serve CLI feeds them."""
+    return {k: torch.from_numpy(e).to(dev, torch.bfloat16) for k, e in draw_extras(cfg, rng, b).items()}
+
+
+def _model_inputs(cfg, rng, b: int, s: int, dev) -> dict:
+    """``s`` prompt tokens per row, then ``_extras`` from the same generator."""
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)}
+    return {**batch, **_extras(cfg, rng, b, dev)}
+
+
+def _prefix(cfg) -> int:
+    """Positions before the prompt: a vlm's patches."""
+    return cfg.vlm.n_patches if cfg.vlm is not None else 0
+
+
+def _cut(cfg, layers: int):
+    """``cfg`` at its first ``layers`` layers, with the full-attention
+    layers among them (hymba's layer groups follow ``full_attn_layers``)."""
+    return dataclasses.replace(cfg, n_layers=layers, full_attn_layers=tuple(
+        i for i in cfg.full_attn_layers if i < layers))
+
+
+def run_serve_path(run: ServeRun, seed: int, smi: str):
+    """``run.arch`` at full width in bfloat16 (at ``run.layers`` when cut): a
+    warm-up request, the timed one, and a ragged one through one
+    ServeEngine; each prefill must launch each of ``run.kernels``
+    ``_per_forward`` times and no other kernel.  Returns the measurements
+    and the bfloat16 model."""
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
-    cfg = get_config(arch)
+    cfg = get_config(run.arch)
+    if run.layers:
+        cfg = _cut(cfg, run.layers)
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda", dtype=torch.bfloat16)
     model.init(torch.Generator(device=dev).manual_seed(seed))
     torch.cuda.synchronize()
     # the config's analytic count (the reference's formula) and the model's own
-    out = {"arch": cfg.name, "n_params": cfg.n_params(),
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "n_params": cfg.n_params(),
            "n_params_model": sum(p.numel() for p in model.lm.parameters()),
-           "init_s": time.perf_counter() - t0, "cache_len": CACHE_LEN, "requests": []}
-    print(f"serve {arch}: {out['n_params_model']:,} parameters in the model "
-          f"({out['n_params']:,} by the config's analytic count)")
+           "init_s": time.perf_counter() - t0, "cache_len": run.cache_len, "requests": []}
+    if run.layers:
+        out["reduced"] = [f"depth: {run.layers} of {get_config(run.arch).n_layers} layers: "
+                          f"{run.why_layers}"]
+    print(f"serve {cfg.name}: {out['n_params_model']:,} parameters in the model, {cfg.n_layers} "
+          f"layers ({out['n_params']:,} by the config's analytic count)")
     finite = []
     prefill, decode = model.prefill, model.decode_step
 
@@ -2149,46 +2327,51 @@ def run_serve_path(arch: str, kernels, seed: int, smi: str):
         return logits, caches
 
     model.prefill, model.decode_step = _prefill, _decode
-    engine = ServeEngine(model, cache_len=CACHE_LEN)
+    engine = ServeEngine(model, cache_len=run.cache_len)
     rng = np.random.default_rng(seed)
     torch.cuda.reset_peak_memory_stats()
-    for tag, b, s in (("warm-up", SERVE_BATCH, SERVE_PROMPT), ("timed", SERVE_BATCH, SERVE_PROMPT),
-                      ("ragged", RAGGED_BATCH, RAGGED_PROMPT)):
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    for tag, b, s, new in (("warm-up", SERVE_BATCH, run.prompt, WARM_NEW),
+                           ("timed", SERVE_BATCH, run.prompt, SERVE_NEW),
+                           ("ragged", RAGGED_BATCH, run.ragged, SERVE_NEW)):
+        batch = _model_inputs(cfg, rng, b, s, dev)
         finite.clear()
         before = dict(kcuda.LAUNCHES)
-        res = engine.generate({"tokens": tokens}, max_new=SERVE_NEW)
+        res = engine.generate(batch, max_new=new)
         launches = _delta(dict(kcuda.LAUNCHES), before)
-        assert len(finite) == SERVE_NEW and all(bool(f) for f in finite), tag
-        assert res.tokens.shape == (b, SERVE_NEW)
+        assert len(finite) == new and all(bool(f) for f in finite), tag
+        assert res.tokens.shape == (b, new)
         assert ((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()
-        for name in LLM_KERNELS + OLTP_KERNELS:    # one prefill, one launch per layer
-            assert launches[name] == (cfg.n_layers if name in kernels else 0), (tag, launches)
-        row = dict(request=tag, batch=b, prompt=s, new=SERVE_NEW,
+        for name in LLM_KERNELS + OLTP_KERNELS:    # one prefill
+            assert launches[name] == (_per_forward(cfg, name) if name in run.kernels else 0), \
+                (tag, launches)
+        row = dict(request=tag, batch=b, prompt=s, positions=_prefix(cfg) + s, new=new,
                    prefill_ms=res.prefill_s * 1e3, decode_ms=res.decode_s * 1e3,
-                   decode_ms_per_step=res.decode_s * 1e3 / (SERVE_NEW - 1),
+                   decode_ms_per_step=res.decode_s * 1e3 / (new - 1),
                    tok_per_s=res.tokens_per_s,
                    prefill_tok_per_s=b * s / res.prefill_s, launches=launches)
         out["requests"].append(row)
-        print(f"serve {arch} {tag}: {b} x {s} tokens + {SERVE_NEW} new: prefill "
-              f"{row['prefill_ms']:.1f} ms ({row['prefill_tok_per_s']:.0f} tok/s), decode "
-              f"{row['decode_ms']:.1f} ms ({row['decode_ms_per_step']:.2f} ms/step), "
-              f"{row['tok_per_s']:.1f} tok/s, launches {launches} | {smi}")
+        print(f"serve {cfg.name} {tag}: {b} x {s} tokens ({row['positions']} positions"
+              + (f", {cfg.enc_dec.enc_seq} frames" if cfg.enc_dec is not None else "")
+              + f") + {new} new: prefill {row['prefill_ms']:.1f} ms "
+              f"({row['prefill_tok_per_s']:.0f} tok/s), decode {row['decode_ms']:.1f} ms "
+              f"({row['decode_ms_per_step']:.2f} ms/step), {row['tok_per_s']:.1f} tok/s, launches "
+              f"{launches} | {smi}")
         if tag == "timed":
-            out["timed_tokens"], out["timed_prompt"] = res.tokens, tokens
+            out["timed_tokens"], out["timed_batch"] = res.tokens, batch
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t_phase
     del model.prefill, model.decode_step      # the class's methods again, no cycle
     return out, model
 
 
-def profile_serve(model, tokens, steps: int = 8):
+def profile_serve(model, batch, cache_len: int, steps: int = 8):
     """One more prefill and ``steps`` decode steps under the CUDA profiler
     (not counted): prefill device ms by kernel group, and per decode step
     the device ms against the host clock (the card's busy share)."""
     caches = []
 
     def _prefill():
-        logits, c = model.prefill({"tokens": tokens}, CACHE_LEN)
+        logits, c = model.prefill(batch, cache_len)
         caches.append(c)
         return logits
 
@@ -2211,7 +2394,7 @@ def profile_serve(model, tokens, steps: int = 8):
             groups["other"] += ms
     top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    s = tokens.shape[1]
+    s = _prefix(model.cfg) + batch["tokens"].shape[1]
 
     def _decode():
         for i in range(steps):
@@ -2228,29 +2411,104 @@ def profile_serve(model, tokens, steps: int = 8):
                 decode_ops_per_step=sum(n for _, n in drows.values()) / steps)
 
 
-def run_oracle(model, prompt, generated):
+def _first_row(batch: dict) -> dict:
+    return {k: v[:1] for k, v in batch.items()}
+
+
+def run_oracle(model, batch, generated, cache_len: int):
     """Full width and depth in float32 with TF32 off: a prefill of the prompt
     plus ORACLE_STEPS decode steps on the tokens the bfloat16 run generated,
     against one prefill of all of them.  Returns (max abs error, max |logit|).
     The bfloat16 model is widened in place, one parameter at a time, so its
     bfloat16 copy is freed as the float32 one is made: stablelm-12b's two
-    copies side by side (24 + 48 GB) would leave little of the card."""
+    copies side by side (24 + 48 GB) would leave little of the card.  The
+    batch's embeddings stay bfloat16 (the model widens them exactly)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model.lm.float()
-    m32 = model
+    prompt = batch["tokens"]
     toks = torch.cat([prompt, generated[:, :ORACLE_STEPS]], dim=1)
     s = prompt.shape[1]
-    logits, caches = m32.prefill({"tokens": toks[:, :s]}, CACHE_LEN)
-    for i in range(s, s + ORACLE_STEPS):
-        logits, caches = m32.decode_step(caches, toks[:, i:i + 1], i)
+    start = _prefix(model.cfg) + s
+    logits, caches = model.prefill(batch, cache_len)
+    for i in range(ORACLE_STEPS):
+        logits, caches = model.decode_step(caches, toks[:, s + i:s + i + 1], start + i)
     del caches
-    full, _ = m32.prefill({"tokens": toks}, CACHE_LEN)
+    full, _ = model.prefill({**batch, "tokens": toks}, cache_len)
+    assert torch.isfinite(logits).all() and torch.isfinite(full).all()
     err = float((logits[:, 0] - full[:, 0]).abs().max())
     scale = float(full.abs().max())
-    assert torch.isfinite(logits).all() and torch.isfinite(full).all()
     assert err <= ORACLE_TOL, (err, scale)
     return err, scale
+
+
+class _MoeDrops:
+    """Count the (token, slot) pairs each MoE routing drops (real tokens
+    past their expert's capacity), and put ``moe_route`` back after."""
+
+    def __enter__(self):
+        self.dropped, self._route = 0, ffn_mod.moe_route
+
+        def route(router, xg, valid, **kw):
+            r = self._route(router, xg, valid, **kw)
+            self.dropped += int((valid[..., None] & ~r.keep).sum())
+            return r
+
+        ffn_mod.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        ffn_mod.moe_route = self._route
+
+
+def run_moe_oracle(run: ServeRun, batch, generated, seed: int) -> dict:
+    """The float32 oracle of a MoE arch at ``run.oracle_layers`` layers (TF32
+    off; seeded weights).  The reference's MoE is not continuation-exact (a
+    decode step's group is its batch, with its own capacity; ROADMAP Queue
+    C), so the gate is the prefill logits of the kernel path against the
+    same model through ``flash_attention_plain`` on the card, within
+    ORACLE_TOL; the continuation's error is printed beside the dropped
+    (token, slot) counts of the prefill, the decode steps and the long
+    prefill, not gated."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = _cut(get_config(run.arch), run.oracle_layers)
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    n0 = dict(kcuda.LAUNCHES)
+    kernel, _ = model.prefill(batch, run.cache_len)
+    saved = lm_mod.attend
+    lm_mod.attend = _plain_attend
+    try:
+        plain, _ = model.prefill(batch, run.cache_len)
+    finally:
+        lm_mod.attend = saved
+    launched = _delta(dict(kcuda.LAUNCHES), n0)
+    assert launched["flash_attention"] == cfg.n_layers, launched     # the kernel side only
+    err = float((kernel - plain).abs().max())
+    scale = float(plain.abs().max())
+    assert torch.isfinite(kernel).all() and err <= ORACLE_TOL, (err, scale)
+    prompt = batch["tokens"]
+    toks = torch.cat([prompt, generated[:, :ORACLE_STEPS]], dim=1)
+    s = prompt.shape[1]
+    drops = {}
+    with _MoeDrops() as d:
+        _, caches = model.prefill(batch, run.cache_len)
+        drops["prefill"] = d.dropped
+        for i in range(ORACLE_STEPS):
+            logits, caches = model.decode_step(caches, toks[:, s + i:s + i + 1], s + i)
+        drops["decode"] = d.dropped - drops["prefill"]
+        del caches
+        full, _ = model.prefill({**batch, "tokens": toks}, run.cache_len)
+        drops["long_prefill"] = d.dropped - drops["prefill"] - drops["decode"]
+    cont = float((logits[:, 0] - full[:, 0]).abs().max())
+    out = dict(layers=cfg.n_layers, kernel_vs_plain_prefill=err, logit_scale=scale,
+               continuation_err=cont, continuation_gated=False, dropped_slots=drops,
+               tokens=dict(prefill=s, decode_steps=ORACLE_STEPS, long_prefill=s + ORACLE_STEPS))
+    del model, kernel, plain, logits, full
+    torch.cuda.empty_cache()
+    return out
 
 
 # --- phase 6: training with the Poplar journal --------------------------------
@@ -2343,8 +2601,9 @@ class _PlainSide:
         return out
 
     def __enter__(self):
-        self._saved = lm_mod.attend, ssm_mod._SsmScan, rwkv_mod._Wkv6
-        side, (_, scan_fn, wkv_fn) = self, self._saved
+        self._saved = (lm_mod.attend, encdec_mod.attend, encdec_mod.attend_bidir, ssm_mod._SsmScan,
+                       rwkv_mod._Wkv6)
+        side, (_, _, _, scan_fn, wkv_fn) = self, self._saved
 
         def attend(q, k, v, **kw):
             out = _plain_attend(q, k, v, **kw)
@@ -2365,15 +2624,20 @@ class _PlainSide:
                 return side._carry("rwkv6_chunked", y, lambda: wkv_fn.apply(
                     *(t.detach() for t in args))[0]), S
 
-        lm_mod.attend, ssm_mod._SsmScan, rwkv_mod._Wkv6 = attend, Scan, Wkv6
+        lm_mod.attend, encdec_mod.attend, ssm_mod._SsmScan, rwkv_mod._Wkv6 = attend, attend, Scan, Wkv6
+        encdec_mod.attend_bidir = lambda q, k, v: attend(q, k, v, causal=False)
         return self
 
     def __exit__(self, *exc):
-        lm_mod.attend, ssm_mod._SsmScan, rwkv_mod._Wkv6 = self._saved
+        (lm_mod.attend, encdec_mod.attend, encdec_mod.attend_bidir, ssm_mod._SsmScan,
+         rwkv_mod._Wkv6) = self._saved
 
 
-def _train_batch(pipe, dev):
-    return {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+def _train_batch(pipe, dev, cfg, rng):
+    """The pipeline's next tokens and labels, and for a vlm or an
+    encoder-decoder its embeddings drawn from ``rng`` (as ``_extras``)."""
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+    return {**batch, **_extras(cfg, rng, batch["tokens"].shape[0], dev)}
 
 
 def _leaf_errors(keys, got, want):
@@ -2390,7 +2654,7 @@ def _leaf_errors(keys, got, want):
 
 def run_grad_oracle(cfg, run: TrainRun, seed: int, dev) -> dict:
     """Full width in float32, TF32 off: one ``train_loss`` and backward on a
-    1 x 2048 batch through the kernels' Functions (``_Flash``, ``_SsmScan``,
+    1 x ``run.seq`` batch through the kernels' Functions (``_Flash``, ``_SsmScan``,
     ``_Wkv6``: each kernel forward, its torch-op backward), against autograd
     through each one's plain version (a) carrying the kernel's forward
     values, each call's kernel output held against the plain output within
@@ -2403,11 +2667,15 @@ def run_grad_oracle(cfg, run: TrainRun, seed: int, dev) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     model = build_model(cfg, device=dev, dtype=torch.float32)
     model.init(torch.Generator(device=dev).manual_seed(seed + 1))
-    params = to_reference(model, device=dev)
+    params = to_reference(model, device=dev, release=True)
     keys = [k for k, _ in keystr_items(params)]
-    batch = _train_batch(TokenPipeline(DataConfig(vocab=cfg.vocab, batch=1, seq_len=TRAIN_SEQ,
-                                                  seed=seed)), dev)
-    sides, forward_err = {}, {}
+    batch = _train_batch(TokenPipeline(DataConfig(vocab=cfg.vocab, batch=1, seq_len=run.seq,
+                                                  seed=seed)), dev, cfg, np.random.default_rng(seed))
+    per_step = {k: 2 * _per_forward(cfg, k) if k in run.kernels else 0 for k in kcuda.LAUNCHES}
+    out = dict(tol=TRAIN_ORACLE_TOL, layers=cfg.n_layers, seq=run.seq)
+    held = {}
+    # the kernels' side against (a) and (b), (c) against (b); each side's
+    # gradients are dropped once nothing compares with them
     for name in ("kernels", "kernel_values", "plain", "one_ulp"):
         side = _PlainSide(name) if name != "kernels" else contextlib.nullcontext()
         with side:
@@ -2416,33 +2684,37 @@ def run_grad_oracle(cfg, run: TrainRun, seed: int, dev) -> dict:
             loss = model.train_loss(live, batch)
             grads = torch.autograd.grad(loss, tree_leaves(live))
             launched = _delta(dict(kcuda.LAUNCHES), n0)
-        if name == "kernels":
-            assert launched == {k: 2 * cfg.n_layers if k in run.kernels else 0 for k in launched}, launched
-        elif name == "kernel_values":
-            # comparison launches (forward and recompute): not counted as the path's
-            assert launched == {k: 2 * cfg.n_layers if k in run.kernels else 0 for k in launched}, launched
-            for k, n in launched.items():
-                kcuda.LAUNCHES[k] -= n
-            forward_err = side.forward_err
+            del live
+        loss = float(loss.detach())
+        if name in ("kernels", "kernel_values"):
+            assert launched == per_step, (name, launched)
         else:
             assert not any(launched.values()), (name, launched)
-        sides[name] = (float(loss.detach()), grads)
-    loss_k, g_k = sides.pop("kernels")
-    out = dict(loss=loss_k, tol=TRAIN_ORACLE_TOL, layers=cfg.n_layers, forward_max_abs_err=forward_err)
-    for name, (loss, grads) in sides.items():
-        # the kernels' side against (a) and (b); (c) against (b)
-        (got_loss, got), (ref_loss, ref) = (((loss, grads), sides["plain"]) if name == "one_ulp"
-                                            else ((loss_k, g_k), (loss, grads)))
-        worst, key = _leaf_errors(keys, got, ref)
-        out[name] = dict(loss=loss, loss_rel_err=abs(got_loss - ref_loss) / abs(ref_loss),
-                         grad_rel_err=worst, grad_rel_err_leaf=key)
+        if name == "kernel_values":
+            # comparison launches (forward and recompute): not counted as the path's
+            for k, n in launched.items():
+                kcuda.LAUNCHES[k] -= n
+            out["forward_max_abs_err"] = side.forward_err
+        if name == "kernels":
+            out["loss"] = loss
+        else:
+            (got_loss, got), (ref_loss, ref) = (((loss, grads), held["plain"]) if name == "one_ulp"
+                                                else (held["kernels"], (loss, grads)))
+            worst, key = _leaf_errors(keys, got, ref)
+            out[name] = dict(loss=loss, loss_rel_err=abs(got_loss - ref_loss) / abs(ref_loss),
+                             grad_rel_err=worst, grad_rel_err_leaf=key)
+        if name in ("kernels", "plain"):
+            held[name] = (loss, grads)
+        if name == "plain":
+            del held["kernels"]
+        del grads
     gated = ["kernel_values"] + (["plain"] if run.oracle_end_to_end else [])
     for name in gated:
         r = out[name]
         assert r["grad_rel_err"] <= TRAIN_ORACLE_TOL and r["loss_rel_err"] <= TRAIN_ORACLE_TOL, (name, r)
     out["gated"] = gated
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    del sides, g_k, params, model
+    del held, params, model
     torch.cuda.empty_cache()
     return out
 
@@ -2568,9 +2840,35 @@ def _largest_record(tree, n_slices: int) -> int:
     return most
 
 
-def _check_step_launches(launched, run: TrainRun, layers: int, what: str):
+def _check_step_launches(launched, run: TrainRun, cfg, what: str):
     for name, n in launched.items():
-        assert n == (2 * layers if name in run.kernels else 0), (what, launched)
+        assert n == (2 * _per_forward(cfg, name) if name in run.kernels else 0), (what, launched)
+
+
+def _train_flops(cfg, params, b: int, s: int):
+    """The model flops of one step and their formula: 6 N per token for the
+    weights a token passes through (a MoE's top k of its experts; an
+    encoder's N_enc weights pass its F frames, not the S tokens), plus 12 Hq
+    D per unmasked attention pair and row (the decoder's causal or windowed
+    pairs, an encoder's F^2 and the cross-attention's S F)."""
+    n = sum(p.numel() for p in tree_leaves(params))
+    if cfg.moe is not None:
+        n -= cfg.n_layers * (cfg.moe.n_experts - cfg.moe.top_k) * 3 * cfg.d_model * cfg.d_ff
+    n_enc = sum(p.numel() for p in tree_leaves(params["enc"])) if cfg.enc_dec is not None else 0
+    flops = 6 * (n - n_enc) * b * s
+    terms = [f"6 x {n - n_enc:,} x {b * s:,}"]
+    pairs = 0
+    if cfg.enc_dec is not None:
+        f = cfg.enc_dec.enc_seq
+        flops += 6 * n_enc * b * f
+        terms.append(f"6 x {n_enc:,} x {b * f:,}")
+        pairs += cfg.enc_dec.enc_layers * f * f + cfg.n_layers * s * f
+    if cfg.rwkv is not None:
+        return flops, " + ".join(terms)
+    pairs += sum(g.n_layers * _attn_pairs(s, s, g.window) for g in lm_mod.layer_groups(cfg))
+    flops += 12 * cfg.n_heads * cfg.hd * pairs * b
+    terms.append(f"12 x {cfg.n_heads} x {cfg.hd} x {pairs:,} x {b}")
+    return flops, " + ".join(terms)
 
 
 def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
@@ -2589,7 +2887,7 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
                + (" and the resume from the restored step" if run.journal else ""),
                "data: the synthetic TokenPipeline stream; weights: random from the seed"]
     if run.layers:
-        cfg = dataclasses.replace(cfg, n_layers=run.layers)
+        cfg = _cut(cfg, run.layers)
         reduced.append(f"depth: {run.layers} of {get_config(run.arch).n_layers} layers, "
                        f"for (a)-(e): {run.why_layers}")
     out = {"arch": cfg.name}
@@ -2606,10 +2904,10 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
     torch.cuda.reset_peak_memory_stats()
     out["oracle"] = run_grad_oracle(cfg, run, seed, dev)
     out["oracle"]["seconds"] = time.perf_counter() - t0
-    oracle_layers = cfg.n_layers
+    oracle_per = {k: _per_forward(cfg, k) for k in kcuda.LAUNCHES}
     o = out["oracle"]
     print(f"train_path {cfg.name} oracle (full width, {cfg.n_layers} layers, float32, TF32 off, "
-          f"1 x {TRAIN_SEQ}): largest leaf gradient error of its max |g| against the plain "
+          f"1 x {run.seq}): largest leaf gradient error of its max |g| against the plain "
           f"versions at the kernels' forward values {o['kernel_values']['grad_rel_err']:.3g} "
           f"({o['kernel_values']['grad_rel_err_leaf']}), end to end "
           f"{o['plain']['grad_rel_err']:.3g} ({o['plain']['grad_rel_err_leaf']}), one float32 "
@@ -2619,7 +2917,7 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
 
     if run.journal and layers != cfg.n_layers:
         reduced.append(f"depth for (b)-(d): {layers} of {cfg.n_layers} layers, forced by {reading}")
-        cfg = dataclasses.replace(cfg, n_layers=layers)
+        cfg = _cut(cfg, layers)
     # deterministic algorithms for run A and the resume; filling each new
     # allocation with NaN (a debugging aid that mode turns on) is left off:
     # every kernel here writes all of its output
@@ -2629,16 +2927,19 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
     try:
         model = build_model(cfg, device=dev, dtype=torch.bfloat16)
         model.init(torch.Generator(device=dev).manual_seed(seed))
-        params = to_reference(model, device=dev)
+        params = to_reference(model, device=dev, release=True)
         opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
         opt = adamw.init(params, opt_cfg)
         n_params = sum(p.numel() for p in tree_leaves(params))
+        flops, formula = _train_flops(cfg, params, run.batch, run.seq)
         state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves({"p": params, "o": opt}))
-        data_cfg = DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=seed)
+        data_cfg = DataConfig(vocab=cfg.vocab, batch=run.batch, seq_len=run.seq, seed=seed)
         pipe = TokenPipeline(data_cfg)
+        rng = np.random.default_rng(seed + 2)    # a vlm's or an encoder-decoder's embeddings
         step_fn = make_train_step(model, opt_cfg)
         desc = (f"train_path {cfg.name} run A: {n_params:,} parameters, {cfg.n_layers} layers, "
-                f"bf16 weights, fp32 moments; {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step")
+                f"bf16 weights, fp32 moments; {run.batch} x {run.seq} tokens a step"
+                + (f" over {cfg.enc_dec.enc_seq} frames" if cfg.enc_dec is not None else ""))
         if run.journal:
             jdir = os.path.join(workdir, "journal")
             mgr = PoplarCheckpointManager(jdir, n_lanes=lanes, n_slices=slices,
@@ -2654,7 +2955,7 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
         torch.cuda.reset_peak_memory_stats()
         losses, step_s, saved, journal = [], [], {}, {}
         for step in range(run.steps):
-            batch = _train_batch(pipe, dev)
+            batch = _train_batch(pipe, dev, cfg, rng)
             before = dict(kcuda.LAUNCHES)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2662,8 +2963,7 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             losses.append(float(metrics["loss"]))
-            _check_step_launches(_delta(dict(kcuda.LAUNCHES), before), run, cfg.n_layers,
-                                 f"step {step}")
+            _check_step_launches(_delta(dict(kcuda.LAUNCHES), before), run, cfg, f"step {step}")
             assert np.isfinite(losses[-1]), losses
             print(f"train_path {cfg.name} step {step}: loss {losses[-1]:.6f}, "
                   f"{step_s[-1] * 1e3:.1f} ms | {smi}", flush=True)
@@ -2727,9 +3027,9 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
             losses_b = []
             for step in range(rstep + 1, run.steps):
                 before = dict(kcuda.LAUNCHES)
-                params, opt, metrics = step_fn(params, opt, _train_batch(pipe, dev))
+                params, opt, metrics = step_fn(params, opt, _train_batch(pipe, dev, cfg, rng))
                 losses_b.append(float(metrics["loss"]))
-                _check_step_launches(_delta(dict(kcuda.LAUNCHES), before), run, cfg.n_layers,
+                _check_step_launches(_delta(dict(kcuda.LAUNCHES), before), run, cfg,
                                      f"resumed step {step}")
             assert losses_b == losses[rstep + 1:], (losses_b, losses)
             final_b = _digests({"params": params, "opt": opt})
@@ -2741,9 +3041,9 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
                        resumed_losses=losses_b, journal=journal)
 
         # (e) one profiled step
-        _, prof = profile_train_step(step_fn, params, opt, _train_batch(pipe, dev))
+        _, prof = profile_train_step(step_fn, params, opt, _train_batch(pipe, dev, cfg, rng))
         launches = dict(kcuda.LAUNCHES)
-        want = {k: 2 * oracle_layers + 2 * cfg.n_layers * n_steps if k in run.kernels else 0
+        want = {k: 2 * oracle_per[k] + 2 * _per_forward(cfg, k) * n_steps if k in run.kernels else 0
                 for k in launches}
         assert launches == want, (launches, want)
     finally:
@@ -2752,24 +3052,15 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
     del params, opt, model, step_fn
     torch.cuda.empty_cache()
 
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = run.batch * run.seq
     step_ms = float(np.median(step_s[min(2, run.steps - 1):])) * 1e3
-    flops, formula = 6 * n_params * tokens, f"6 x {n_params:,} x {tokens:,}"
-    if run.arch != "rwkv6-7b":
-        # every layer's attention pairs: causal, or causal within the window
-        pairs = 0
-        for g in lm_mod.layer_groups(cfg):
-            pairs += g.n_layers * _attn_pairs(TRAIN_SEQ, TRAIN_SEQ, g.window)
-        flops += 12 * cfg.n_heads * cfg.hd * pairs * TRAIN_BATCH
-        formula = f"(6 N tokens + 12 Hq D pairs B) = ({formula} + 12 x {cfg.n_heads} x {cfg.hd} " \
-                  f"x {pairs:,} x {TRAIN_BATCH})"
     out.update(
-        n_params=n_params, layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        n_params=n_params, layers=cfg.n_layers, batch=run.batch, seq=run.seq,
         losses=losses, step_ms_each=[t * 1e3 for t in step_s], step_ms=step_ms,
         tokens_per_s=tokens / (step_ms / 1e3), model_flops_per_step=flops,
         flop_rate=flops / (step_ms / 1e3), mfu=flops / (step_ms / 1e3) / BF16_FLOPS,
         flop_formula=formula + " per step", profile=prof, state_bytes=state_bytes,
-        launches_per_step={k: 2 * cfg.n_layers for k in run.kernels},
+        launches_per_step={k: 2 * _per_forward(cfg, k) for k in run.kernels},
         launches=launches, reduced=reduced, seconds=time.perf_counter() - t_phase)
     print(f"train_path {cfg.name}: step {step_ms:.1f} ms (median of steps "
           f"{min(2, run.steps - 1)}-{run.steps - 1}), {out['tokens_per_s']:,.0f} tok/s, "
@@ -2800,7 +3091,12 @@ def main(argv=None) -> int:
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
+    def tick(phase: str):
+        print(f"elapsed {time.perf_counter() - t_start:.1f} s after {phase}", flush=True)
+
+    tick("the build")
     kernels = check_kernels(args.seed)
+    tick("the OLTP kernel cases")
     for k in kernels:
         for tag, r in (("", k), (" write-only", k.get("write_only")),
                        (" scan form", k.get("scan_form")),
@@ -2825,8 +3121,9 @@ def main(argv=None) -> int:
               + (f", {k['device_ops_per_call']} device ops per call: {k['phase_device_ms']}"
                  if "phase_device_ms" in k else "") + "), plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound'][0]:.4f} ms ({k['bound'][1]})"
-              f", library {k['library_ms']} ms | {smi}")
+              f", library {k['library_ms']} ms ({k.get('library', 'none')}) | {smi}")
     print("llm_kernel_cases " + json.dumps(llm_cases, default=float))
+    tick("the LLM kernel cases")
     print(f"main path: YCSB {N_ROWS} rows (reduced from the paper's {PAPER_ROWS}"
           f" for the smoke's time limit), 4 SSD devices, segments of "
           f"{SEGMENT_BYTES >> 20} MiB")
@@ -2847,6 +3144,7 @@ def main(argv=None) -> int:
     for mode in ("kernel", "vectorized", "scalar"):
         print(f"recovery s mode={mode}: {out['recovery'][mode]['seconds']:.3f} | {smi}")
     print("main_path " + json.dumps(out, default=float))
+    tick("main_path")
 
     # TPC-C, then sharded Poplar: each path with its own counts
     for name, run in (("tpcc_path", lambda w: run_tpcc_path(w, args.seed, smi)),
@@ -2862,6 +3160,7 @@ def main(argv=None) -> int:
             assert path["launches"][kname] > 0, f"kernel {kname} never launched on {name}"
         print(f"{name} launches {path['launches']} | {smi}")
         print(f"{name} " + json.dumps(path, default=float))
+        tick(name)
 
     # the serving tier over the YCSB table, with its own counts
     workdir = tempfile.mkdtemp(prefix="chip_smoke-")
@@ -2878,35 +3177,52 @@ def main(argv=None) -> int:
     print(f"serve_tier_path launches {tier['launches']} ({tier['seconds']:.1f} s), seg_reduce == "
           f"plain on every launch {tier['seg_reduces_checked']}, host {tier['host']} | {smi}")
     print("serve_tier_path " + json.dumps(tier, default=float))
+    tick("serve_tier_path")
 
     # the LLM serve paths, one model at a time, each with its own counts; a
     # kernel's line reports the first serve path that launched it (the D = 160
-    # flash cases, stablelm-12b's)
+    # flash cases, stablelm-12b's; the family cases, their archs')
     serve_launches = {}
-    for arch, arch_kernels in SERVE_ARCHS:
+    for run in SERVE_RUNS:
+        arch = run.arch
         kcuda.reset_launches()
-        serve, model = run_serve_path(arch, arch_kernels, args.seed, smi)
+        serve, model = run_serve_path(run, args.seed, smi)
         serve_launches[arch] = dict(kcuda.LAUNCHES)
-        for name in arch_kernels:
+        for name in run.kernels:
             assert serve_launches[arch][name] > 0, f"kernel {name} never launched on the {arch} path"
             launches[name] = launches[name] or serve_launches[arch][name]
-        prof = profile_serve(model, serve["timed_prompt"])
-        print(f"{arch} prefill {SERVE_BATCH} x {SERVE_PROMPT} under the CUDA profiler: device "
+        prof = profile_serve(model, serve["timed_batch"], run.cache_len)
+        print(f"{arch} prefill {SERVE_BATCH} x {run.prompt} under the CUDA profiler: device "
               f"ms {prof['prefill_device_ms']}, total {prof['prefill_total_ms']:.1f}; decode "
               f"step: device {prof['decode_device_ms_per_step']:.2f} ms in "
               f"{prof['decode_host_ms_per_step']:.2f} ms of host clock, "
               f"{prof['decode_ops_per_step']:.0f} device ops | {smi}")
-        err, scale = run_oracle(model, serve["timed_prompt"][:1],
-                                torch.from_numpy(serve["timed_tokens"][:1]).cuda())
-        print(f"float32 continuation oracle ({arch}, full width, TF32 off): prefill "
-              f"{SERVE_PROMPT} + {ORACLE_STEPS} decode steps vs one prefill of "
-              f"{SERVE_PROMPT + ORACLE_STEPS}: max abs logit error {err:.3g} (tol {ORACLE_TOL}, "
-              f"max |logit| {scale:.3g})")
-        serve.update(prefill_profile=prof, oracle_err=err, oracle_logit_scale=scale)
-        del serve["timed_tokens"], serve["timed_prompt"], model
+        batch = _first_row(serve["timed_batch"])
+        generated = torch.from_numpy(serve["timed_tokens"][:1]).cuda()
+        steps = f"{run.prompt} + {ORACLE_STEPS} decode steps vs one prefill of {run.prompt + ORACLE_STEPS}"
+        if run.oracle_layers:
+            del model
+            torch.cuda.empty_cache()
+            o = run_moe_oracle(run, batch, generated, args.seed)
+            print(f"float32 oracle ({arch}, full width, {o['layers']} layers, TF32 off): prefill "
+                  f"logits through the flash kernel vs flash_attention_plain: max abs error "
+                  f"{o['kernel_vs_plain_prefill']:.3g} (tol {ORACLE_TOL}, max |logit| "
+                  f"{o['logit_scale']:.3g}); continuation {steps}: max abs logit error "
+                  f"{o['continuation_err']:.3g} (not gated: the MoE's capacity convention), dropped "
+                  f"(token, slot) pairs {o['dropped_slots']} | {smi}")
+            serve.update(prefill_profile=prof, oracle=o)
+        else:
+            err, scale = run_oracle(model, batch, generated, run.cache_len)
+            print(f"float32 continuation oracle ({arch}, full width, {model.cfg.n_layers} layers, "
+                  f"TF32 off): prefill {steps}: max abs logit error {err:.3g} (tol {ORACLE_TOL}, "
+                  f"max |logit| {scale:.3g}) | {smi}")
+            serve.update(prefill_profile=prof, oracle_err=err, oracle_logit_scale=scale)
+            del model
+        del serve["timed_tokens"], serve["timed_batch"], batch
         torch.cuda.empty_cache()
         serve["allocated_gib_after_free"] = torch.cuda.memory_allocated() / 2**30
         print("serve_path " + json.dumps(serve, default=float))
+        tick(f"serve_path {arch}")
 
     # training, one arch at a time, each with its own counts
     for run in TRAIN_RUNS:
@@ -2919,13 +3235,17 @@ def main(argv=None) -> int:
         for name in run.kernels:
             assert train["launches"][name] > 0, f"{name} never launched on train_path {run.arch}"
         print("train_path " + json.dumps(train, default=float))
+        tick(f"train_path {run.arch}")
 
     line = []
     main_cases = {name: next(k for k in llm_cases if k["name"] == name) for name in LLM_KERNELS}
-    d160 = [k for k in llm_cases if k["name"] == "flash_attention" and " D=160 " in k["shape"]]
-    for k in kernels + [main_cases[name] for name in LLM_KERNELS] + d160:
-        n = (serve_launches["stablelm-12b"]["flash_attention"] if any(k is c for c in d160)
-             else launches[k["name"]])
+    # the D = 160 cases and the family cases, each with the launches of the
+    # serve path whose shape it has (grok-1-314b's softcap case has none)
+    served = [(k, "stablelm-12b") for k in llm_cases
+              if k["name"] == "flash_attention" and " D=160 " in k["shape"]]
+    served += [(k, k["path"]) for k in llm_cases if k.get("path")]
+    for k, path in [(k, None) for k in kernels + [main_cases[name] for name in LLM_KERNELS]] + served:
+        n = launches[k["name"]] if path is None else serve_launches[path][k["name"]]
         line.append({
             "name": k["name"], "route": "cuda", "source": k["source"],
             "replaces": k["replaces"], "launches": n,

@@ -1,8 +1,7 @@
 """Architecture registry: every arch the reference knows, by name.
 
 The config files are plain data, so the port keeps its own copy of all of
-them; :func:`repro_torch.models.api.build_model` says which families the
-port can run.  The reference's ``input_specs``/``make_inputs`` build
+them; :func:`repro_torch.models.api.build_model` builds every one.  The reference's ``input_specs``/``make_inputs`` build
 abstract JAX shapes for its dry runs and have no counterpart here.
 """
 

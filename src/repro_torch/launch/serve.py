@@ -7,7 +7,10 @@
 
 The first two run the full-width model in bfloat16 on the card with
 weights drawn from ``--seed``; the third a reduced same-family config on
-the CPU (the kernels' plain versions).
+the CPU (the kernels' plain versions).  ``--arch`` takes every registered
+arch; a vlm's patch embeddings and an encoder-decoder's frame embeddings
+are drawn from ``--seed`` after the tokens, N(0, 0.02) in bfloat16, as the
+reference's serve CLI draws them.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 def main(argv=None) -> int:
     from ..configs.base import reduced as make_reduced
     from ..configs.registry import get_config
-    from ..models.api import build_model
+    from ..models.api import build_model, draw_extras
     from ..models.serve_llm import ServeEngine
 
     ap = argparse.ArgumentParser()
@@ -45,6 +48,8 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     tokens = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(tokens).to(model.device)}
+    batch.update({k: torch.from_numpy(e).to(model.device, torch.bfloat16)
+                  for k, e in draw_extras(cfg, rng, args.batch).items()})
 
     res = engine.generate(batch, max_new=args.max_new)
     where = torch.cuda.get_device_name(model.device) if model.device.type == "cuda" else "cpu"

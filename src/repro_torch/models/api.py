@@ -20,25 +20,33 @@ or building raises.  ``dtype`` is the type of every weight the reference
 declares as bfloat16 (the default); ``torch.float32`` makes every
 parameter float32.
 
-Families ported so far, each serving and training: ``dense``, ``hybrid``
-(hymba) and ``rwkv`` (rwkv6).  The ``moe``, ``enc_dec`` (whisper) and
-``vlm`` (llava) families raise ``NotImplementedError``.
+Every family of ``configs/registry.py`` builds, serves and trains:
+``dense``, ``moe`` (mixtral, grok), ``hybrid`` (hymba), ``rwkv`` (rwkv6)
+and ``vlm`` (llava) as :class:`~repro_torch.models.lm.LM`, ``enc_dec``
+(whisper) as :class:`~repro_torch.models.encdec.EncDecLM`.  ``prefill`` and
+``train_loss`` take the whole batch: ``tokens`` (and ``labels``), a vlm's
+``vision_embeds`` (B, P, d) and an encoder-decoder's ``frame_embeds`` (B,
+F, d): :func:`draw_extras` draws them as the reference's serve CLI does.
+:func:`attention_calls` counts a forward's attention calls, each one launch
+of the flash kernel on the card.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.ops import kernel_device
 from .common import init_params
-from .lm import LM, param_specs
+from .encdec import EncDecLM
+from .lm import LM
 
 
 class Model:
-    def __init__(self, lm: LM, cfg: ArchConfig):
+    def __init__(self, lm: Union[LM, EncDecLM], cfg: ArchConfig):
         self.lm = lm
         self.cfg = cfg
 
@@ -51,7 +59,7 @@ class Model:
         return self.lm.embed.dtype
 
     def param_specs(self):
-        return param_specs(self.cfg)
+        return self.lm.param_specs()
 
     def init(self, generator: torch.Generator) -> "Model":
         init_params(self.lm, generator)
@@ -75,7 +83,7 @@ class Model:
         return self.lm.train_loss(batch, params)
 
     def prefill(self, batch: Dict[str, torch.Tensor], cache_len: int):
-        return self.lm.prefill(batch["tokens"], cache_len)
+        return self.lm.prefill(batch, cache_len)
 
     def decode_step(self, caches, tokens: torch.Tensor, pos: int):
         return self.lm.decode_step(caches, tokens, pos)
@@ -86,9 +94,32 @@ class Model:
 
 def build_model(cfg: ArchConfig, *, device="cuda", dtype: torch.dtype = torch.bfloat16,
                 remat_policy: str = "none") -> Model:
-    for family, present in (("moe", cfg.moe), ("enc_dec", cfg.enc_dec), ("vlm", cfg.vlm)):
-        if present is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the {family} family is not ported yet")
     dev = kernel_device(device)
-    return Model(LM(cfg, dev, dtype, remat_policy), cfg)
+    impl = EncDecLM if cfg.enc_dec is not None else LM
+    return Model(impl(cfg, dev, dtype, remat_policy), cfg)
+
+
+def attention_calls(cfg: ArchConfig) -> int:
+    """Attention calls in one forward of ``cfg``'s model (a prefill, or a
+    training forward or its recompute), each one flash kernel launch on the
+    card: one per layer, none in rwkv's attention-free blocks, and for an
+    encoder-decoder one per encoder layer and two per decoder layer (its
+    causal self-attention and its cross-attention)."""
+    if cfg.rwkv is not None:
+        return 0
+    if cfg.enc_dec is not None:
+        return cfg.enc_dec.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def draw_extras(cfg: ArchConfig, rng: np.random.Generator, batch: int) -> Dict[str, np.ndarray]:
+    """The inputs besides the tokens, drawn from ``rng`` in the order and at
+    the scale of the reference's serve CLI: a vlm's ``vision_embeds`` (B, P,
+    d), then an encoder-decoder's ``frame_embeds`` (B, F, d), N(0, 0.02), as
+    float32 arrays (empty for the other families)."""
+    out = {}
+    if cfg.vlm is not None:
+        out["vision_embeds"] = rng.normal(0, 0.02, (batch, cfg.vlm.n_patches, cfg.d_model))
+    if cfg.enc_dec is not None:
+        out["frame_embeds"] = rng.normal(0, 0.02, (batch, cfg.enc_dec.enc_seq, cfg.d_model))
+    return {k: v.astype(np.float32) for k, v in out.items()}

@@ -13,7 +13,8 @@ Training differentiates :func:`attend` through :class:`_Flash`, the
 counterpart of the reference's ``custom_vjp`` ``_flash``: its forward is
 the same kernel call, which also returns each row's log-sum-exp, and its
 backward (:func:`_flash_bwd`) is the reference's ``_flash_vjp_bwd`` in
-torch ops, identical on both devices.
+torch ops (with each row's normaliser and ``dsum`` recomputed in a first
+pass), identical on both devices.
 """
 
 from __future__ import annotations
@@ -27,6 +28,13 @@ from ..kernels.flash_attention import flash_attention_fwd
 
 NEG_INF = -1e30
 CHUNK_K = 1024      # the backward's KV chunk (the reference's attend default)
+# the backward's first-pass p and dp (float32) kept for its second pass.  8 GiB
+# holds all of them at tinyllama-1.1b's training shape (8 x 2048, 32 heads:
+# 6 GiB), hymba-1.5b's (4.7) and whisper-medium's encoder (2.1), so those
+# recompute nothing; at mixtral-8x22b's 48 heads (9 GiB) the second KV chunk
+# (3 GiB) is recomputed and its one-layer step peaks at 62.5 GiB of the 80-GB
+# card.  It bounds what the backward adds over one pass whatever the shape.
+BWD_CACHE_BYTES = 8 << 30
 
 
 def _split_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -40,14 +48,29 @@ def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
-def _flash_bwd(q, k, v, out, lse, do, causal: bool, window: Optional[int],
+def _flash_bwd(q, k, v, lse, do, causal: bool, window: Optional[int],
                softcap: Optional[float]):
     """The reference's ``_flash_vjp_bwd`` over KV chunks of ``CHUNK_K``:
     recompute the chunk's probabilities from the saved log-sum-exp, then
     ``dsum``, ``ds`` (times the softcap's derivative), dq, dk and dv, all in
-    float32.  q, do and out are (B, S, H, D), k and v (B, T, Hkv, D), lse
+    float32.  q and do are (B, S, H, D), k and v (B, T, Hkv, D), lse
     (B, H, S).  The reference differentiates the scaled q; the kernel takes
     q unscaled, so dq carries the scale once more.
+
+    One change: the reference takes ``dsum`` as ``do · out`` with the
+    forward's output, and the forward's log-sum-exp as each row's
+    normaliser.  Here they come from the kernel, whose float32 sums run in
+    another order, and the rows of ``ds`` then miss summing to zero by a
+    residual that dq and the keys' gradient carry times the keys' (queries')
+    common part: on whisper-medium's 1,500 bidirectional frames dq moved by
+    7.2e-4 of its largest value (ROADMAP Queue C).  So a first pass over
+    the chunks takes each row's own normaliser ``P = sum_j p_ij`` and
+    ``sum_j p_ij dp_ij`` from the recomputed scores, and the second pass
+    uses ``p / P`` and ``dsum = sum_j p_ij dp_ij / P``: every row of ``ds``
+    sums to zero up to its own rounding, and ``out`` is not read.  The first
+    pass keeps each chunk's p and dp for the second while their bytes fit
+    in ``BWD_CACHE_BYTES`` (the rest are recomputed), so up to that size the
+    two passes cost one's products.
 
     The work is laid out per KV head as (B, Hkv, G·S, D), the G query heads
     of a KV head stacked along the rows, so each product is one batched
@@ -65,18 +88,17 @@ def _flash_bwd(q, k, v, out, lse, do, causal: bool, window: Optional[int],
         return x.transpose(1, 2).float().reshape(b, n, g, s, d)
 
     qf, dof = heads(q) * scale, heads(do)
-    dsum = torch.einsum("bngsd,bngsd->bngs", dof, heads(out))
     lse = lse.reshape(b, n, g, s)
     kf, vf = k.transpose(1, 2).float(), v.transpose(1, 2).float()   # (B, Hkv, T, D)
     q_pos = torch.arange(s, device=q.device)
-    dq = torch.zeros_like(qf)
-    dk = torch.zeros((b, n, t, d), dtype=torch.float32, device=q.device)
-    dv = torch.zeros_like(dk)
-    for j0 in range(0, t, CHUNK_K):
-        j1 = min(j0 + CHUNK_K, t)
-        lo = min(j0, s) if causal else 0
-        if lo == s:
-            break
+    # (first key, last key + 1, first row with an unmasked score)
+    chunks = [(j0, min(j0 + CHUNK_K, t), min(j0, s) if causal else 0) for j0 in range(0, t, CHUNK_K)]
+    chunks = [c for c in chunks if c[2] < s]
+
+    def chunk(j0, j1, lo, shift):
+        """The chunk's rows lo.. as (B, Hkv, rows, D) q and do, its keys and
+        values, exp(scores - shift) (B, Hkv, G, S - lo, c), dp and the
+        softcap's derivative."""
         rows = (s - lo) * g
         qc = qf[:, :, :, lo:].reshape(b, n, rows, d)
         doc = dof[:, :, :, lo:].reshape(b, n, rows, d)
@@ -93,8 +115,37 @@ def _flash_bwd(q, k, v, out, lse, do, causal: bool, window: Optional[int],
             mask &= q_pos[lo:, None] >= kv_pos[None, :]
         if window is not None:
             mask &= q_pos[lo:, None] - kv_pos[None, :] < window
-        p = sc.masked_fill_(~mask, NEG_INF).sub_(lse[..., lo:, None]).exp_()   # normalized
+        p = sc.masked_fill_(~mask, NEG_INF).sub_(shift[..., lo:, None]).exp_()
         dp = torch.matmul(doc, vj.transpose(-1, -2)).view(b, n, g, s - lo, j1 - j0)
+        return qc, doc, kj, vj, p, dp, dcap
+
+    # pass 1: each row's normaliser and sum of p dp; a chunk's p and dp are
+    # kept for pass 2 while they fit in BWD_CACHE_BYTES, else recomputed
+    norm = torch.zeros((b, n, g, s), dtype=torch.float32, device=q.device)
+    pdp = torch.zeros_like(norm)
+    kept, cached = 0, []
+    for j0, j1, lo in chunks:
+        parts = chunk(j0, j1, lo, lse)
+        p, dp = parts[4], parts[5]
+        norm[..., lo:] += p.sum(-1)
+        pdp[..., lo:] += (p * dp).sum(-1)
+        size = sum(x.numel() * x.element_size() for x in parts[4:] if x is not None)
+        if kept + size <= BWD_CACHE_BYTES:
+            kept += size
+        else:
+            parts = None
+        cached.append(parts)
+    inv = 1.0 / norm
+    dsum = pdp * inv
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, n, t, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for i, (j0, j1, lo) in enumerate(chunks):
+        parts = cached[i] if cached[i] is not None else chunk(j0, j1, lo, lse)
+        cached[i] = None                  # freed once this chunk is done
+        qc, doc, kj, vj, p, dp, dcap = parts
+        rows = (s - lo) * g
+        p = p.mul_(inv[..., lo:, None])                       # normalized
         ds = dp.sub_(dsum[..., lo:, None]).mul_(p)
         if dcap is not None:
             ds = ds.mul_(dcap)
@@ -109,7 +160,7 @@ def _flash_bwd(q, k, v, out, lse, do, causal: bool, window: Optional[int],
 class _Flash(torch.autograd.Function):
     """Attention with the flash backward: the forward is the kernel wrapper
     on detached inputs, returning the output and each row's log-sum-exp;
-    q, k, v, the output and the log-sum-exp are saved; the backward is
+    q, k, v and the log-sum-exp are saved; the backward is
     :func:`_flash_bwd`.  Inputs and output are (B, S, H, D)."""
 
     @staticmethod
@@ -118,15 +169,14 @@ class _Flash(torch.autograd.Function):
             q.detach().transpose(1, 2), k.detach().transpose(1, 2), v.detach().transpose(1, 2),
             causal=causal, window=window, softcap=softcap, return_lse=True,
         )
-        out = out.transpose(1, 2)
-        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.save_for_backward(q, k, v, lse)
         ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
-        return out
+        return out.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q, k, v, out, lse, do, ctx.causal, ctx.window, ctx.softcap)
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, lse, do, ctx.causal, ctx.window, ctx.softcap)
         return dq, dk, dv, None, None, None
 
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly (dense, hybrid and rwkv families).
+"""Decoder-only LM assembly (dense, moe, hybrid, rwkv and vlm families).
 
 Layers are organized into **groups**, contiguous runs of identical blocks
 (``layer_groups``), exactly as in the reference (``repro/models/lm.py``):
@@ -8,7 +8,7 @@ layer is a :class:`Block` module holding its own parameters and the groups
 are a Python loop.  Decode caches keep the reference's per-group layout:
 one dict per group of tensors stacked over its layers.
 
-Three entry points: ``train_loss(batch, params)``, ``prefill(tokens,
+Three entry points: ``train_loss(batch, params)``, ``prefill(batch,
 cache_len)`` and ``decode_step(caches, tokens, pos)``.  Every group's
 prefill ring has capacity ``cache_len``, filled from the last
 ``cache_len`` tokens (the reference's layout, ring divergence included:
@@ -18,9 +18,15 @@ appended logically during the decode attention, then written at slot
 in place.  An rwkv group keeps no ring: its cache is the constant-size
 decode state (both token shifts and the wkv state), also updated in place.
 
-``train_loss`` runs the blocks of the dense, hybrid and rwkv families
-without caches (the rwkv block from the zero state), each under the
-reference's rematerialisation policy (``remat_policy``: ``"none"``, the
+A moe block (mixtral, grok) is a dense block whose MLP is
+:func:`~repro_torch.models.ffn.moe_fwd`; its cache is the dense one's.  A
+vlm (llava) prepends the batch's ``vision_embeds`` to the token embeddings
+in prefill and training, so positions run over the patches first; the loss
+masks the patches out and the labels are left-padded to match.
+
+``train_loss`` runs the blocks of every family without caches (the rwkv
+block from the zero state), each under the reference's
+rematerialisation policy (``remat_policy``: ``"none"``, the
 default, recomputes every block in the backward; ``"dots"`` keeps the
 weight products; ``"full"`` keeps everything), and the loss through
 :func:`chunked_xent`.  It takes either the model's own parameters or a
@@ -29,9 +35,8 @@ step and the optimizer work on.  Attention, the scan and wkv6 run their
 kernels forward and their torch-op backwards (``attention._Flash``,
 ``ssm._SsmScan``, ``rwkv._Wkv6``).
 
-The ``moe`` mixer waits for a later slice.  The reference's ``constrain``
-sharding hints are no-ops outside a mesh and are not ported: one card has
-no mesh.
+The reference's ``constrain`` sharding hints are no-ops outside a mesh
+and are not ported: one card has no mesh.
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from . import ssm as ssm_mod
 from .attention import attend, decode_attend
 from .common import (ParamSpec, ParamTree, apply_norm, apply_rope, dense_spec, iter_leaves,
                      norm_spec, stack_specs)
-from .ffn import mlp_fwd, mlp_spec
+from .ffn import mlp_fwd, mlp_spec, moe_fwd, moe_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,12 +109,11 @@ def block_spec(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
         s = rwkv_mod.rwkv_spec(d, cfg.d_ff, r.n_heads, r.head_dim, r.decay_lora)
         return {"ln1": norm_spec(cfg, d), "time": s["time"], "ln2": norm_spec(cfg, d),
                 "channel": s["channel"]}
-    if kind not in ("dense", "hymba"):
-        raise NotImplementedError(f"{kind} blocks are not ported yet")
-    spec: Dict[str, Any] = {
-        "ln1": norm_spec(cfg, d), "attn": attn_spec(cfg), "ln2": norm_spec(cfg, d),
-        "mlp": mlp_spec(d, cfg.d_ff, style=cfg.mlp_style),
-    }
+    spec: Dict[str, Any] = {"ln1": norm_spec(cfg, d), "attn": attn_spec(cfg), "ln2": norm_spec(cfg, d)}
+    if kind == "moe":
+        spec["moe"] = moe_spec(d, cfg.d_ff, cfg.moe.n_experts)
+    else:
+        spec["mlp"] = mlp_spec(d, cfg.d_ff, style=cfg.mlp_style)
     if kind == "hymba":
         s = cfg.ssm
         spec["ssm"] = ssm_mod.ssm_spec(d, s.n_heads, s.head_dim, s.state_dim, s.conv_width)
@@ -162,15 +166,17 @@ def _attn_prefill(cfg: ArchConfig, p, x, positions, window, cache_len):
     out = attend(q, k, v, causal=True, window=window, logit_softcap=cfg.attn_softcap)
     b, s = q.shape[:2]
     y = out.reshape(b, s, -1) @ p.wo
-    # ring cache of capacity cache_len from the last cache_len tokens, in
-    # slots 0..cache_len-1 (the reference's layout)
+    return y, {"k": ring(k, cache_len), "v": ring(v, cache_len)}
+
+
+def ring(t: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """A ring cache of capacity ``cache_len`` from the last ``cache_len``
+    positions of ``t`` (B, S, H, D), in slots 0..cache_len-1 (the
+    reference's layout), zero-padded when S is shorter."""
+    s = t.shape[1]
     if s >= cache_len:
-        kc, vc = k[:, -cache_len:], v[:, -cache_len:]
-    else:
-        pad = cache_len - s
-        kc = F.pad(k, (0, 0, 0, 0, 0, pad))
-        vc = F.pad(v, (0, 0, 0, 0, 0, pad))
-    return y, {"k": kc.contiguous(), "v": vc.contiguous()}
+        return t[:, -cache_len:].contiguous()
+    return F.pad(t, (0, 0, 0, 0, 0, cache_len - s))
 
 
 def _attn_decode(cfg: ArchConfig, p, x, cache, pos: int, window):
@@ -199,11 +205,21 @@ def _attn_decode(cfg: ArchConfig, p, x, cache, pos: int, window):
     return y
 
 
+def ffn(cfg: ArchConfig, kind: str, p, x: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward on the already normed ``x``: the MoE for a
+    moe block, the MLP otherwise."""
+    if kind == "moe":
+        m = cfg.moe
+        return moe_fwd(p.moe, x, n_experts=m.n_experts, top_k=m.top_k,
+                       capacity_factor=m.capacity_factor, group_size=m.group_size)
+    return mlp_fwd(p.mlp, x, style=cfg.mlp_style)
+
+
 # --- blocks --------------------------------------------------------------------
 
 class Block(ParamTree):
     """One decoder layer: its parameters (``ln1``, ``attn``, ``ln2``,
-    ``mlp``, and for hymba ``ssm`` and the two branch norms; for rwkv
+    ``mlp`` (``moe`` for a moe block), and for hymba ``ssm`` and the two branch norms; for rwkv
     ``ln1``, ``time``, ``ln2``, ``channel``) and its prefill and decode
     passes."""
 
@@ -212,7 +228,7 @@ class Block(ParamTree):
         self.cfg, self.kind, self.window = cfg, g.kind, g.window
 
     def _ffn(self, x):
-        return mlp_fwd(self.mlp, apply_norm(self.cfg, self.ln2, x), style=self.cfg.mlp_style)
+        return ffn(self.cfg, self.kind, self, apply_norm(self.cfg, self.ln2, x))
 
     def _mix(self, a, m):
         cfg = self.cfg
@@ -271,9 +287,6 @@ class Block(ParamTree):
 
 # --- training -------------------------------------------------------------------
 
-TRAIN_KINDS = ("dense", "hymba", "rwkv")
-
-
 class _Tree:
     """Attribute access over a nested dict of tensors, so one layer's slice
     of a stacked reference tree reads like a :class:`Block`
@@ -313,7 +326,7 @@ def block_train(cfg: ArchConfig, kind: str, window: Optional[int], p, x: torch.T
         m, _ = ssm_mod.ssm_scan(p.ssm, xn, None, sc.n_heads, sc.head_dim, sc.state_dim)
         a = 0.5 * (apply_norm(cfg, p.attn_branch_norm, a) + apply_norm(cfg, p.ssm_branch_norm, m))
     x = x + a
-    return x + mlp_fwd(p.mlp, apply_norm(cfg, p.ln2, x), style=cfg.mlp_style)
+    return x + ffn(cfg, kind, p, apply_norm(cfg, p.ln2, x))
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None):
@@ -399,7 +412,7 @@ def unstack_group(group: Dict[str, Any], n_layers: int) -> List[_Tree]:
 def group_cache_spec(cfg: ArchConfig, g: GroupDef, batch: int, cache_len: int) -> Dict[str, ParamSpec]:
     """Stacked (over layers) decode-cache shapes + logical axes, as the
     reference declares them (its prefill fills every group's ring at
-    ``cache_len``)."""
+    ``cache_len``); a moe group's cache is the dense one's."""
     L = g.n_layers
     if g.kind == "rwkv":
         r = cfg.rwkv
@@ -411,8 +424,6 @@ def group_cache_spec(cfg: ArchConfig, g: GroupDef, batch: int, cache_len: int) -
             "wkv": ParamSpec((L, batch, r.n_heads, r.head_dim, r.head_dim),
                              ("layers", "batch", "heads", None, None), torch.float32, "zeros"),
         }
-    if g.kind not in ("dense", "hymba"):
-        raise NotImplementedError(f"{g.kind} caches are not ported yet")
     w = cache_len if g.window is None else min(g.window, cache_len)
     spec = {
         "k": ParamSpec((L, batch, w, cfg.n_kv_heads, cfg.hd),
@@ -450,8 +461,16 @@ class LM(ParamTree):
         self.blocks = nn.ModuleList(
             Block(cfg, g, device, dtype) for g in self.groups for _ in range(g.n_layers))
 
+    def param_specs(self):
+        return param_specs(self.cfg)
+
     def cache_specs(self, batch: int, cache_len: int):
         return cache_specs(self.cfg, batch, cache_len)
+
+    def stacks(self):
+        """``(key, blocks)`` per stacked leaf group of the reference's tree:
+        ``("groups", g)`` holds group g's blocks."""
+        return [(("groups", i), blocks) for i, (_, blocks) in enumerate(self._group_blocks())]
 
     def _group_blocks(self):
         j = 0
@@ -466,20 +485,25 @@ class LM(ParamTree):
 
     def train_loss(self, batch: Dict[str, torch.Tensor], params: Optional[Dict[str, Any]] = None):
         """The mean token cross entropy of ``batch`` (``tokens`` and
-        ``labels``, (B, S)) as a float32 scalar.  ``params``: a tree in the
-        reference's layout (:func:`~repro_torch.models.weights.to_reference`
-        on the model's device), or None for the model's own parameters."""
+        ``labels``, (B, S); a vlm also ``vision_embeds``, (B, P, d)) as a
+        float32 scalar.  ``params``: a tree in the reference's layout
+        (:func:`~repro_torch.models.weights.to_reference` on the model's
+        device), or None for the model's own parameters."""
         cfg = self.cfg
-        kinds = {g.kind for g in self.groups}
-        if not kinds <= set(TRAIN_KINDS):
-            raise NotImplementedError(f"{cfg.name}: train_loss of {sorted(kinds)} blocks")
         if params is None:
             top, layers = self, [blocks for _, blocks in self._group_blocks()]
         else:
             top = _Tree(params)
             layers = [unstack_group(gp, g.n_layers) for g, gp in zip(self.groups, params["groups"])]
-        tokens = batch["tokens"]
+        tokens, labels = batch["tokens"], batch["labels"]
         x = top.embed[tokens.long()]
+        mask = None
+        if cfg.vlm is not None:
+            ve = batch["vision_embeds"].to(x.dtype)
+            x = torch.cat([ve, x], dim=1)
+            mask = torch.cat([torch.zeros(ve.shape[:2], dtype=torch.float32, device=x.device),
+                              torch.ones(tokens.shape, dtype=torch.float32, device=x.device)], dim=1)
+            labels = F.pad(labels, (x.shape[1] - labels.shape[1], 0))
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         for g, group in zip(self.groups, layers):
             fn = remat(self.remat_policy, functools.partial(block_train, cfg, g.kind, g.window))
@@ -487,12 +511,15 @@ class LM(ParamTree):
                 x = fn(p, x, positions)
         x = apply_norm(cfg, top.final_norm, x)
         w = top.embed.t() if cfg.tie_embeddings else top.unembed
-        return chunked_xent(x, w, batch["labels"])
+        return chunked_xent(x, w, labels, mask)
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, cache_len: int) -> Tuple[torch.Tensor, List[Dict]]:
-        """tokens: (B, S) -> (last-position logits (B, 1, V), caches)."""
-        x = self.embed[tokens.long()]
+    def prefill(self, batch: Dict[str, torch.Tensor], cache_len: int) -> Tuple[torch.Tensor, List[Dict]]:
+        """``batch["tokens"]``: (B, S) (a vlm's ``vision_embeds``, (B, P, d),
+        go first) -> (last-position logits (B, 1, V), caches)."""
+        x = self.embed[batch["tokens"].long()]
+        if self.cfg.vlm is not None:
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         caches = []
         for _, blocks in self._group_blocks():

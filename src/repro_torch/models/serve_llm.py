@@ -2,9 +2,11 @@
 
 ``ServeEngine.generate`` runs a batch of prompts through one prefill and
 decodes tokens step by step, greedily (``argmax``, the first index on
-ties, as ``jnp.argmax``).  Times are host clocks around work that ends in
-``torch.cuda.synchronize()`` on the card (the reference's
-``block_until_ready``).
+ties, as ``jnp.argmax``).  The batch goes to prefill whole: a vlm's
+``vision_embeds`` come before the prompt, so decode positions start after
+both; an encoder-decoder's ``frame_embeds`` feed its encoder.  Times are
+host clocks around work that ends in ``torch.cuda.synchronize()`` on the
+card (the reference's ``block_until_ready``).
 """
 
 from __future__ import annotations
@@ -46,8 +48,12 @@ class ServeEngine:
         t1 = time.perf_counter()
 
         out = [next_tok]
+        # absolute positions count the vlm prefix
+        pos = prompt_len
+        if self.model.cfg.vlm is not None and "vision_embeds" in batch:
+            pos += batch["vision_embeds"].shape[1]
         for i in range(max_new - 1):
-            logits, cache = self.model.decode_step(cache, next_tok, prompt_len + i)
+            logits, cache = self.model.decode_step(cache, next_tok, pos + i)
             next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(next_tok)
         self._sync()

@@ -40,27 +40,30 @@ def load_reference(model: Model, params: Dict[str, Any]) -> Model:
     """Copy the reference's parameter tree into ``model``.  Every leaf must
     match a parameter's shape, and every parameter must be set."""
     lm = model.lm
+    names = {id(p): n for n, p in lm.named_parameters()}
     seen = set()
 
-    def load(name: str, arr) -> None:
-        p = lm.get_parameter(name)
-        t = _tensor(arr)
+    def load(p: torch.nn.Parameter, t: torch.Tensor, what: str) -> None:
         if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: reference shape {tuple(t.shape)}, port {tuple(p.shape)}")
+            raise ValueError(f"{what}: reference shape {tuple(t.shape)}, port {tuple(p.shape)}")
         p.copy_(t)
-        seen.add(name)
+        seen.add(names[id(p)])
 
-    for name, arr in iter_leaves({k: v for k, v in params.items() if k != "groups"}):
-        load(name, arr)
-    j = 0
-    for g, group in zip(lm.groups, params["groups"]):
-        leaves = [(name, _tensor(arr)) for name, arr in iter_leaves(group)]
-        for i in range(g.n_layers):
-            for name, arr in leaves:
-                load(f"blocks.{j + i}.{name}", arr[i])
-        j += g.n_layers
-    missing = {n for n, _ in lm.named_parameters()} - seen
-    if missing or len(params["groups"]) != len(lm.groups):
+    # "groups.0." (a list entry) or "enc.": the stacked leaves of those blocks
+    stacks = {".".join(map(str, key)) + ".": blocks for key, blocks in lm.stacks()}
+    for name, arr in iter_leaves(params):
+        t = _tensor(arr)
+        prefix = next((pre for pre in stacks if name.startswith(pre)), None)
+        if prefix is None:
+            load(lm.get_parameter(name), t, name)
+            continue
+        blocks = stacks[prefix]
+        if t.shape[0] != len(blocks):
+            raise ValueError(f"{name}: {t.shape[0]} stacked layers, port {len(blocks)}")
+        for i, blk in enumerate(blocks):
+            load(blk.get_parameter(name[len(prefix):]), t[i], f"{name}[{i}]")
+    missing = set(names.values()) - seen
+    if missing:
         raise ValueError(f"reference tree does not cover the port's parameters: {sorted(missing)}")
     return model
 
@@ -85,19 +88,35 @@ def _nest(flat) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def to_reference(model: Model, device="cpu") -> Dict[str, Any]:
-    """The model's parameters in the reference's tree, groups stacked over
-    their layers, as detached tensors on ``device`` in their own dtypes:
-    ``load_reference(model, to_reference(model))`` changes nothing."""
+def to_reference(model: Model, device="cpu", release: bool = False) -> Dict[str, Any]:
+    """The model's parameters in the reference's tree, stacked over their
+    layers, as detached tensors on ``device`` in their own dtypes:
+    ``load_reference(model, to_reference(model))`` changes nothing.
+
+    ``release=True`` hands the parameters over: each of the model's
+    parameters is emptied as soon as the tree holds its values, so the two
+    never hold two full copies (a mixtral-8x22b layer's bf16 weights are
+    5 GB).  The model then holds no weights: it serves no more, and trains
+    only through ``train_loss(tree, batch)``."""
     lm = model.lm
-    top = [(name, p.detach().to(device)) for name, p in lm.named_parameters()
-           if not name.startswith("blocks.")]
-    tree = _nest(top)
-    groups = []
-    for _, blocks in lm._group_blocks():
+    stacks = lm.stacks()
+    in_blocks = {id(p) for _, blocks in stacks for p in blocks.parameters()}
+
+    def take(ps, t):
+        if release:
+            for p in ps:
+                p.data = p.data.new_empty(0)
+        return t
+
+    tree = _nest((name, take([p], p.detach().to(device))) for name, p in lm.named_parameters()
+                 if id(p) not in in_blocks)
+    for key, blocks in stacks:
         names = [name for name, _ in blocks[0].named_parameters()]
-        groups.append(_nest(
-            (name, torch.stack([blk.get_parameter(name).detach() for blk in blocks]).to(device))
-            for name in names))
-    tree["groups"] = groups
+        stacked = _nest((name, take(ps, torch.stack([p.detach() for p in ps]).to(device)))
+                        for name in names
+                        for ps in [[blk.get_parameter(name) for blk in blocks]])
+        if len(key) == 1:
+            tree[key[0]] = stacked
+        else:                 # ("groups", g): the g-th entry of a list
+            tree.setdefault(key[0], []).append(stacked)
     return tree

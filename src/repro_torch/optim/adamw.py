@@ -75,6 +75,9 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+UPDATE_PART = 1 << 26      # elements of a leaf updated at once
+
+
 def update(grads, state, params, cfg: AdamWConfig):
     """Returns ``(new_params, new_state, metrics)``."""
     count = state["count"] + 1
@@ -84,7 +87,7 @@ def update(grads, state, params, cfg: AdamWConfig):
     b1c = 1.0 - torch.pow(cfg.b1, count.float())
     b2c = 1.0 - torch.pow(cfg.b2, count.float())
 
-    def _upd(p, g, m, v):
+    def _upd_part(p, g, m, v):
         g = g.float() * scale
         m32, v32 = m.float(), v.float()
         m_new = cfg.b1 * m32 + (1.0 - cfg.b1) * g
@@ -94,6 +97,23 @@ def update(grads, state, params, cfg: AdamWConfig):
         step = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
         p_new = p.float() - lr * step
         return p_new.to(p.dtype), m_new.to(cfg.moment_dtype), v_new.to(cfg.moment_dtype)
+
+    def _upd(p, g, m, v):
+        """Elementwise, so a large leaf is updated in flat parts of at most
+        UPDATE_PART elements: its float32 temporaries stay that small (an
+        expert weight of mixtral-8x22b holds 805 M elements) and every
+        element's value is the same."""
+        n = p.numel()
+        if n <= UPDATE_PART:
+            return _upd_part(p, g, m, v)
+        outs = (torch.empty_like(p), torch.empty(p.shape, dtype=cfg.moment_dtype, device=p.device),
+                torch.empty(p.shape, dtype=cfg.moment_dtype, device=p.device))
+        flat = [t.reshape(-1) for t in (p, g, m, v)]
+        for i in range(0, n, UPDATE_PART):
+            parts = _upd_part(*(t[i:i + UPDATE_PART] for t in flat))
+            for out, part in zip(outs, parts):
+                out.view(-1)[i:i + UPDATE_PART] = part
+        return outs
 
     out = [_upd(*leaves) for leaves in zip(
         tree_leaves(params), tree_leaves(grads), tree_leaves(state["mu"]), tree_leaves(state["nu"]))]

@@ -33,6 +33,7 @@ from repro_torch.kernels.ref import scatter_max_ref, seg_reduce_ref
 from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
 from repro_torch.kernels.scatter_max import NO_POS, ssn_scatter_max_plain
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
+from repro_torch.models.api import attention_calls, draw_extras
 
 
 @pytest.fixture
@@ -746,6 +747,39 @@ def test_flash_attention_head_dim_160_matches_plain(cuda_device, b, hq, hkv, s, 
     torch.testing.assert_close(lse, want_lse, atol=2e-4, rtol=2e-4)
 
 
+# The encoder-decoder, MoE and VLM families' flash configurations at their
+# full widths and sequence lengths, at a reduced batch (and, for mixtral's
+# window, 12 of its 48 query heads, so the plain version's (B, H, S, T)
+# float32 scores fit): whisper's bidirectional encoder (a last 64-key tile
+# of 28 keys) and cross-attention (S != T), mixtral's 4096-token window over
+# an 8192-token prompt, grok's softcap at its 48 / 8 heads of 128.
+FAMILY_CASES = [
+    # (b, hq, hkv, s, t, d, causal, window, softcap, dtypes)
+    (1, 16, 16, 1500, 1500, 64, False, None, None, (torch.float32, torch.bfloat16)),
+    (2, 16, 16, 384, 1500, 64, False, None, None, (torch.bfloat16,)),
+    (1, 12, 2, 8192, 8192, 128, True, 4096, None, (torch.bfloat16,)),
+    (1, 48, 8, 2048, 2048, 128, True, None, 30.0, (torch.bfloat16,)),
+]
+
+
+@pytest.mark.parametrize("case,dtype", [(c, dt) for c in FAMILY_CASES for dt in c[-1]])
+def test_flash_attention_family_shapes_match_plain(cuda_device, case, dtype):
+    b, hq, hkv, s, t, d, causal, window, softcap, _ = case
+    g = torch.Generator(device=cuda_device).manual_seed(s + t + hq)
+    q = torch.randn(b, s, hq, d, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    k = torch.randn(b, t, hkv, d, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    v = torch.randn(b, t, hkv, d, generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0 = cuda.LAUNCHES["flash_attention"]
+    o, lse = flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["flash_attention"] == n0 + 1
+    assert o.dtype == dtype and o.transpose(1, 2).is_contiguous()
+    want_o, want_lse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(o.float(), want_o.float(), **_ftol(dtype))
+    torch.testing.assert_close(lse, want_lse, atol=2e-4, rtol=2e-4)
+
+
 def test_flash_attention_refuses_other_head_dims(cuda_device):
     q = torch.randn(1, 2, 16, 96, device=cuda_device)
     n0 = cuda.LAUNCHES["flash_attention"]
@@ -853,6 +887,95 @@ def test_llm_serve_path_on_the_card_matches_the_cpu(cuda_device):
         want, wc = cpu.decode_step(wc, toks[:, i:i + 1], i)
         got, gc = gpu.decode_step(gc, toks[:, i:i + 1].to(cuda_device), i)
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _family_inputs(cfg, rng, b, s, dev):
+    """Tokens, then ``draw_extras`` (a vlm's patch or an encoder-decoder's
+    frame embeddings), from ``rng``."""
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             **draw_extras(cfg, rng, b)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("s,t", [(448, 1500), (1500, 1500)])
+def test_flash_backward_on_the_card_tracks_a_float64_backward(cuda_device, s, t):
+    """``_Flash`` on the card (the kernel's float32 forward and log-sum-exp,
+    then the torch-op backward) at whisper-medium's cross-attention (448
+    decoder queries over 1,500 frames) and encoder shapes, 16 heads of 64,
+    bidirectional, on near-uniform rows: keys with a common part 100 times
+    their spread, where a backward that takes ``dsum`` from the forward's
+    output misses a float64 backward by 7e-4 of dq's largest value.  Each of
+    dq, dk and dv stays within the larger of 1e-4 and twice the distance
+    of float32 autograd through the plain attention on the card (the
+    float32 floor, near 1e-4 for dq here) from the float64 backward (TF32
+    off)."""
+    from repro_torch.models.attention import attend
+
+    def plain(q, k, v):
+        scores = torch.einsum("bshd,bthd->bhst", q, k) / 8.0
+        return torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), v)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    q = 0.05 * torch.randn(1, s, 16, 64, generator=gen)
+    k = 100.0 + torch.randn(1, t, 16, 64, generator=gen)
+    v = torch.randn(1, t, 16, 64, generator=gen)
+    do = torch.randn(1, s, 16, 64, generator=gen)
+    leaves = [x.to(cuda_device).requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(attend(*leaves, causal=False), leaves, do.to(cuda_device))
+    floor = torch.autograd.grad(plain(*leaves), leaves, do.to(cuda_device))
+    exact = [x.double().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(plain(*exact), exact, do.double())
+
+    def rel(g, w):
+        return float((g.cpu().double() - w).abs().max() / w.abs().max())
+
+    for name, g, f, w in zip("qkv", got, floor, want):
+        err, limit = rel(g, w), max(1e-4, 2 * rel(f, w))
+        assert err <= limit, (name, err, limit)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "mixtral-8x22b", "llava-next-mistral-7b"])
+def test_family_serve_path_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Reduced whisper (encoder, causal and cross attention), mixtral (MoE,
+    window) and llava (the patch prefix) with head dim 64 (the kernel's
+    width), float32, TF32 off: the card's prefill (the flash kernel) and
+    decode steps equal the CPU's on the same weights and inputs."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.api import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(arch), head_dim=64, n_heads=4, n_kv_heads=2)
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32).init(torch.Generator().manual_seed(0))
+    gpu = build_model(cfg, device=cuda_device, dtype=torch.float32)
+    gpu.lm.load_state_dict(cpu.lm.state_dict())
+    rng = np.random.default_rng(0)
+    batch = _family_inputs(cfg, rng, 2, 90, "cpu")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 10)).astype(np.int32))
+    prefix = cfg.vlm.n_patches if cfg.vlm is not None else 0
+    n0 = dict(cuda.LAUNCHES)
+    want, wc = cpu.prefill(batch, 128)
+    got, gc = gpu.prefill({k: v.to(cuda_device) for k, v in batch.items()}, 128)
+    torch.cuda.synchronize()
+    launched = {name: cuda.LAUNCHES[name] - n0[name] for name in n0}
+    assert launched == {name: attention_calls(cfg) if name == "flash_attention" else 0
+                        for name in launched}
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for k, (g, w) in _cache_pairs(gc, wc):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4, msg=k)
+    for i in range(10):
+        want, wc = cpu.decode_step(wc, toks[:, i:i + 1], prefix + 90 + i)
+        got, gc = gpu.decode_step(gc, toks[:, i:i + 1].to(cuda_device), prefix + 90 + i)
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _cache_pairs(got, want):
+    """(name, got, want) over a decoder-only LM's list of group caches or
+    an encoder-decoder's dict."""
+    if isinstance(want, dict):
+        return [(k, (got[k], want[k])) for k in want]
+    return [(f"{i}.{k}", (g[k], w[k])) for i, (g, w) in enumerate(zip(got, want)) for k in w]
 
 
 def _rwkv6_inputs(b, h, s, kd, vd, dtype, dev, seed, w_lo=0.5):
@@ -1055,14 +1178,17 @@ def test_flash_gradients_match_autograd_over_plain(cuda_device, s, hq, hkv, d, w
 
 TRAIN_KERNELS = {"tinyllama-1.1b": ("flash_attention",),
                  "hymba-1.5b": ("flash_attention", "ssm_scan_chunked"),
-                 "rwkv6-7b": ("rwkv6_chunked",)}
+                 "rwkv6-7b": ("rwkv6_chunked",),
+                 "whisper-medium": ("flash_attention",),
+                 "mixtral-8x22b": ("flash_attention",)}
 
 
 @pytest.mark.parametrize("arch", sorted(TRAIN_KERNELS))
 def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
-    """Reduced tinyllama and hymba with head dim 64 (the flash kernel's
-    width) and reduced rwkv6, float32, TF32 off: three train steps on the
-    card (each kernel's forward and its recompute, the torch-op backwards)
+    """Reduced tinyllama, hymba, whisper (its encoder, causal and cross
+    attention) and mixtral (MoE) with head dim 64 (the flash kernel's width)
+    and reduced rwkv6, float32, TF32 off: three train steps on the card
+    (each kernel's forward and its recompute, the torch-op backwards)
     against the CPU's on the same weights and batches, at 1e-4 of each
     leaf's largest magnitude."""
     from repro_torch.configs.base import reduced
@@ -1087,10 +1213,13 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
         opt = adamw.init(params, opt_cfg)
         step = make_train_step(model, opt_cfg)
         pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=2, seq_len=128))
+        rng = np.random.default_rng(1)
         n0 = dict(cuda.LAUNCHES)
         losses = []
         for _ in range(3):
             batch = {k: torch.from_numpy(v).to(model.device) for k, v in pipe.next_batch().items()}
+            extra = _family_inputs(cfg, rng, 2, 1, model.device)
+            batch.update({k: v for k, v in extra.items() if k != "tokens"})
             params, opt, m = step(params, opt, batch)
             losses.append(float(m["loss"]))
         launched = {k: n - n0[k] for k, n in cuda.LAUNCHES.items()}
@@ -1098,7 +1227,8 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
     (cpu_losses, cpu_params, cpu_launched), (gpu_losses, gpu_params, launched) = out
     assert not any(cpu_launched.values())
     for name, n in launched.items():      # forward and recompute per layer and step
-        assert n == (3 * 2 * cfg.n_layers if name in TRAIN_KERNELS[arch] else 0), launched
+        per = attention_calls(cfg) if name == "flash_attention" else cfg.n_layers
+        assert n == (3 * 2 * per if name in TRAIN_KERNELS[arch] else 0), launched
     np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
     for got, want in zip(tree_leaves(gpu_params), tree_leaves(cpu_params)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))

@@ -39,7 +39,8 @@ from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.kernels.rwkv6 import rwkv6_chunked
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked
-from repro_torch.models.api import build_model
+from repro_torch.models.api import build_model, draw_extras
+from repro_torch.models import attention as attention_mod
 from repro_torch.models.attention import attend
 from repro_torch.kernels import rwkv6 as rwkv6_kernel
 from repro_torch.kernels import ssm_scan as ssm_kernel
@@ -50,7 +51,7 @@ from repro_torch.models.weights import from_reference, to_reference
 from repro_torch.optim import adamw
 from repro_torch.parallel import compression
 from repro_torch.train.step import make_train_step
-from repro_torch.tree import keystr_items, tree_leaves
+from repro_torch.tree import keystr_items, tree_leaves, tree_map
 
 
 def _close(got, want, rel=1e-4):
@@ -115,6 +116,67 @@ def test_flash_backward_matches_reference(b, s, hq, hkv, d, window, softcap):
     (out * torch.from_numpy(w)).sum().backward()
     for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
         _close(got, ref)
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,d", [
+    (2, 24, 40, 4, 4, 16),       # whisper's cross-attention shape, reduced: S < T
+    (1, 40, 24, 4, 2, 16),       # S > T, GQA
+    (1, 30, 1100, 2, 1, 16),     # T past the backward's chunk of 1024
+])
+def test_flash_backward_bidirectional_matches_reference(b, s, t, hq, hkv, d):
+    """``_Flash`` with ``causal=False`` and S != T (the encoder-decoder's
+    cross-attention) against ``jax.grad`` of the reference's
+    ``attend(causal=False, impl="flash")``."""
+    rng = np.random.default_rng(s * t)
+    q, w = (rng.standard_normal((b, s, hq, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((b, t, hkv, d)).astype(np.float32) for _ in range(2))
+
+    def f(q, k, v):
+        return jnp.sum(jattend(q, k, v, causal=False, impl="flash") * w)
+
+    want = jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    (attend(tq, tk, tv, causal=False) * torch.from_numpy(w)).sum().backward()
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+        _close(got, ref)
+
+
+def test_flash_backward_ignores_the_forwards_rounding(monkeypatch):
+    """``_Flash``'s backward takes each row's normaliser and ``dsum`` from
+    its own recomputed scores, not from the forward's ``out`` and ``lse``
+    (on the card the kernel's, whose float32 sums run in another order).
+    Here the forward's ``out`` and ``lse`` are each moved by 1e-5 noise, on
+    inputs where that matters: 448 near-uniform queries over 1,500 keys
+    with a common part 100 times their spread.  dq, dk and dv stay within
+    1e-4 of a float64 backward of their largest values (with the
+    reference's ``dsum = do · out``, dq does not)."""
+    gen = torch.Generator().manual_seed(0)
+    q = 0.05 * torch.randn(1, 448, 4, 64, generator=gen)
+    k = 100.0 + torch.randn(1, 1500, 4, 64, generator=gen)
+    v = torch.randn(1, 1500, 4, 64, generator=gen)
+    do = torch.randn(1, 448, 4, 64, generator=gen)
+    fwd = attention_mod.flash_attention_fwd
+
+    def rounded(*args, **kw):
+        out, lse = fwd(*args, **kw)
+        return (out + 1e-5 * torch.randn(out.shape, generator=gen),
+                lse + 1e-5 * torch.randn(lse.shape, generator=gen))
+
+    monkeypatch.setattr(attention_mod, "flash_attention_fwd", rounded)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(attend(*leaves, causal=False), leaves, do)
+    qd, kd, vd = (x.double().requires_grad_(True) for x in (q, k, v))
+    scores = torch.einsum("bshd,bthd->bhst", qd, kd) / 8.0
+    out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), vd)
+    want = torch.autograd.grad(out, (qd, kd, vd), do.double())
+    for g, w in zip(got, want):
+        _close(g, w.numpy(), rel=1e-4)
+    # the first pass's scores recomputed instead of kept: the same values
+    monkeypatch.setattr(attention_mod, "flash_attention_fwd", fwd)
+    kept = torch.autograd.grad(attend(*leaves, causal=False), leaves, do)
+    monkeypatch.setattr(attention_mod, "BWD_CACHE_BYTES", 0)
+    again = torch.autograd.grad(attend(*leaves, causal=False), leaves, do)
+    assert all(torch.equal(a, b) for a, b in zip(again, kept))
 
 
 def test_flash_forward_returns_the_plain_lse():
@@ -462,6 +524,24 @@ def test_adamw_update_matches_reference(moments):
     assert all(s.dtype == cfg.moment_dtype for s in tree_leaves(specs["mu"]))
 
 
+def test_adamw_updates_a_large_leaf_in_parts_exactly(monkeypatch):
+    """A leaf over ``UPDATE_PART`` elements is updated in flat parts (their
+    float32 temporaries bounded); every element equals the one-pass update
+    bit for bit, moments included."""
+    cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    gen = torch.Generator().manual_seed(3)
+    params = {"w": torch.randn(3, 5, 7, generator=gen).bfloat16(), "b": torch.randn(4, generator=gen)}
+    grads = {k: torch.randn(v.shape, generator=gen).to(v.dtype) for k, v in params.items()}
+    state = adamw.init(params, cfg)
+    state["mu"]["w"] += torch.randn(3, 5, 7, generator=gen)
+    whole = adamw.update(grads, state, params, cfg)
+    monkeypatch.setattr(adamw, "UPDATE_PART", 8)
+    parts = adamw.update(grads, state, params, cfg)
+    for got, want in zip(tree_leaves(parts[:2]), tree_leaves(whole[:2])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want)
+
+
 def test_quantize_is_exact():
     rng = np.random.default_rng(11)
     for shape in ((5000,), (3, 2048), (7, 13, 5), ()):
@@ -537,7 +617,9 @@ def test_token_pipeline_is_the_references():
         np.testing.assert_array_equal(again.next_batch()["tokens"], j.next_batch()["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-1.5b", "hymba-1.5b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "qwen2-1.5b", "hymba-1.5b", "rwkv6-7b",
+                                  "whisper-medium", "mixtral-8x22b", "grok-1-314b",
+                                  "llava-next-mistral-7b"])
 def test_to_reference_inverts_from_reference(arch):
     """The reference's bfloat16 tree through the port and back, exactly:
     the same keys, shapes, dtypes and values."""
@@ -552,3 +634,26 @@ def test_to_reference_inverts_from_reference(arch):
         assert g.device.type == "cpu" and tuple(g.shape) == w.shape, key
         assert str(g.dtype).replace("torch.", "") == w.dtype.name, key
         np.testing.assert_array_equal(g.float().numpy(), w.astype(np.float32), err_msg=key)
+
+
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "whisper-medium", "mixtral-8x22b",
+                                  "llava-next-mistral-7b"])
+def test_to_reference_release_hands_the_parameters_over(arch):
+    """``to_reference(release=True)`` gives the same tree as a copy, leaves
+    every parameter of the model empty, and the model's ``train_loss``
+    through that tree is the loss before the release, bit for bit."""
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg, device="cpu", dtype=torch.float32).init(torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    toks = rng.integers(0, cfg.vocab, (2, 17)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    batch.update({k: torch.from_numpy(v) for k, v in draw_extras(cfg, rng, 2).items()})
+    kept = tree_map(lambda t: t.clone(), to_reference(model))
+    want = model.train_loss(kept, batch)
+    given = to_reference(model, release=True)
+    assert all(p.numel() == 0 for p in model.lm.parameters())
+    got, ref = list(keystr_items(given)), list(keystr_items(kept))
+    assert [k for k, _ in got] == [k for k, _ in ref]
+    for (key, g), (_, w) in zip(got, ref):
+        assert torch.equal(g, w), key
+    assert torch.equal(model.train_loss(given, batch), want)

@@ -35,6 +35,7 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
+import numpy as np
 import torch
 
 import chip_smoke as cs
@@ -74,7 +75,8 @@ def main(argv=None) -> int:
     model.init(torch.Generator(device=dev).manual_seed(args.seed + 1))
     params = cs.to_reference(model, device=dev)
     batch = cs._train_batch(cs.TokenPipeline(cs.DataConfig(
-        vocab=cfg.vocab, batch=1, seq_len=cs.TRAIN_SEQ, seed=args.seed)), dev)
+        vocab=cfg.vocab, batch=1, seq_len=cs.TRAIN_SEQ, seed=args.seed)), dev, cfg,
+        np.random.default_rng(args.seed))
     keys = [k for k, _ in cs.keystr_items(params)]
     sides = {}
     for name, attention, mixer in (("plain", True, True), ("kernels", False, False),
