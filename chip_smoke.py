@@ -26,8 +26,9 @@ together), and then:
    S=1000, a bfloat16 full-causal D=128 case with 12 query and 2 KV
    heads, tinyllama-1.1b's training shape, 32 query and 4 KV heads,
    causal, bfloat16 and float32, stablelm-12b's prefill shape, 32 query
-   and 8 KV heads of 160, causal, bfloat16 and float32, on the CUDA-core
-   kernel at D = 160, whisper-medium's encoder (B=8, S=T=1500, 16 heads of
+   and 8 KV heads of 160, causal, bfloat16 on the tensor-core kernel and
+   float32 on the CUDA-core one, each named under the profiler,
+   whisper-medium's encoder (B=8, S=T=1500, 16 heads of
    64, bidirectional, bfloat16 and float32) and cross-attention (S=384,
    T=1500), mixtral-8x22b's windowed prefill (B=2, S=T=8192, 48 query and 8
    KV heads of 128, window 4096) and grok-1-314b's softcapped one (B=8,
@@ -475,6 +476,17 @@ def _per_call_device_ms(fn, calls: int = 20):
     return sum(ms for ms, _ in rows.values()) / calls if rows else None
 
 
+def _flash_kernels(rows, calls: int = 1):
+    """The flash kernels among ``_device_ms`` rows, by template name (e.g.
+    ``flash_fwd_wgmma_kernel<160>``), with their launches per call."""
+    out = {}
+    for key, (_, n) in rows.items():
+        m = re.search(r"flash_fwd_\w*kernel<\d+>", key)
+        if m:
+            out[m.group(0)] = out.get(m.group(0), 0) + n / calls
+    return out
+
+
 def _profiled_calls(fn, calls: int, per_call: int = 1):
     """``_device_ms`` rows of ``calls`` calls of ``fn``, with at least
     ``per_call`` device operations per call."""
@@ -850,6 +862,8 @@ def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64, train=False, 
                                                                enable_gqa=True),
                         "SDPA, boolean window mask")
     extra = _flash_train_timings(q, k, v, with_lse, lse) if train else {}
+    calls = 5
+    rows = _profiled_calls(lambda: flash_attention_fwd(q, k, v, **kw), calls)
     shape = f"B={b} S={s} T={t} Hq={hq} Hkv={hkv} D={d} {'causal' if causal else 'bidirectional'}"
     shape += f" window={window}" + (f" softcap={softcap}" if softcap is not None else "")
     return dict(
@@ -860,7 +874,9 @@ def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64, train=False, 
         lse_device_ms=_per_call_device_ms(
             lambda: flash_attention_fwd(q, k, v, return_lse=True, **kw), 5),
         **extra,
-        device_ms=_per_call_device_ms(lambda: flash_attention_fwd(q, k, v, **kw), 5),
+        device_ms=sum(ms for ms, _ in rows.values()) / calls if rows else None,
+        device_ops_per_call=sum(n for _, n in rows.values()) / calls if rows else None,
+        device_kernels=_flash_kernels(rows, calls),
         plain_ms=_median_ms(lambda: _flash_plain(q, k, v, **kw), reps=5),
         bound=_bound(nbytes, flops, peak), library_ms=None if lib is None else _median_ms(lib),
         library=library,
@@ -1003,9 +1019,12 @@ def check_llm_kernels(seed: int):
         cases.append(_flash_case(gen, TRAIN_BATCH, TRAIN_SEQ, None, dt, dev, hq=32, hkv=4, d=64,
                                  train=dt == torch.bfloat16))
     # stablelm-12b's prefill shape (32 query / 8 KV heads of 160, causal):
-    # the CUDA-core kernel at D = 160 in both types
-    for dt in (torch.bfloat16, torch.float32):
+    # bf16 on the tensor-core kernel, fp32 on the CUDA-core one, one device
+    # operation a call
+    for dt, kernel in ((torch.bfloat16, "flash_fwd_wgmma_kernel<160>"),
+                       (torch.float32, "flash_fwd_kernel<160>")):
         cases.append(_flash_case(gen, b, s, None, dt, dev, hq=32, hkv=8, d=160))
+        assert cases[-1]["device_kernels"] == {kernel: 1.0}, cases[-1]["device_kernels"]
     cases += family_flash_cases(gen, dev)
     cases.append(_ssm_case(gen, b, s, torch.float32, dev))
     cases.append(_ssm_case(gen, b, s, torch.bfloat16, dev))
@@ -2366,7 +2385,8 @@ def run_serve_path(run: ServeRun, seed: int, smi: str):
 
 def profile_serve(model, batch, cache_len: int, steps: int = 8):
     """One more prefill and ``steps`` decode steps under the CUDA profiler
-    (not counted): prefill device ms by kernel group, and per decode step
+    (not counted): prefill device ms by kernel group and its flash launches
+    by kernel name, and per decode step
     the device ms against the host clock (the card's busy share)."""
     caches = []
 
@@ -2376,6 +2396,7 @@ def profile_serve(model, batch, cache_len: int, steps: int = 8):
         return logits
 
     logits, rows = _device_ms(_prefill)
+    flash = _flash_kernels(rows)
     groups = {"flash_attention": 0.0, "ssm_scan_chunked": 0.0, "rwkv6_chunked": 0.0,
               "gemm": 0.0, "copies": 0.0, "other": 0.0}
     for key, (ms, _) in rows.items():
@@ -2406,6 +2427,7 @@ def profile_serve(model, batch, cache_len: int, steps: int = 8):
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
     dev_ms = sum(ms for ms, _ in drows.values()) / steps
     return dict(prefill_device_ms=groups, prefill_total_ms=sum(groups.values()),
+                prefill_flash_kernels=flash,
                 prefill_top=[(k[:90], ms, n) for k, (ms, n) in top],
                 decode_device_ms_per_step=dev_ms, decode_host_ms_per_step=host_ms,
                 decode_ops_per_step=sum(n for _, n in drows.values()) / steps)
@@ -3088,7 +3110,7 @@ def main(argv=None) -> int:
     kcuda.lib()
     print(f"built {os.path.basename(so)} in {time.perf_counter() - t0:.1f} s")
     for line in kcuda.build_log().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(tag in line for tag in ("registers", "Compiling entry", "spill", "wgmma")):
             print("  " + line.strip())
 
     def tick(phase: str):
@@ -3192,8 +3214,13 @@ def main(argv=None) -> int:
             assert serve_launches[arch][name] > 0, f"kernel {name} never launched on the {arch} path"
             launches[name] = launches[name] or serve_launches[arch][name]
         prof = profile_serve(model, serve["timed_batch"], run.cache_len)
+        if "flash_attention" in run.kernels:
+            # a bf16 prefill runs the tensor-core kernel at its head dim, and no other
+            want = {f"flash_fwd_wgmma_kernel<{model.cfg.hd}>"}
+            assert set(prof["prefill_flash_kernels"]) == want, (arch, prof["prefill_flash_kernels"])
         print(f"{arch} prefill {SERVE_BATCH} x {run.prompt} under the CUDA profiler: device "
-              f"ms {prof['prefill_device_ms']}, total {prof['prefill_total_ms']:.1f}; decode "
+              f"ms {prof['prefill_device_ms']}, total {prof['prefill_total_ms']:.1f}, flash "
+              f"launches {prof['prefill_flash_kernels']}; decode "
               f"step: device {prof['decode_device_ms_per_step']:.2f} ms in "
               f"{prof['decode_host_ms_per_step']:.2f} ms of host clock, "
               f"{prof['decode_ops_per_step']:.0f} device ops | {smi}")

@@ -100,8 +100,7 @@ class FrontierRegistry:
         )
 
     def register_journal(self, name: str, tails) -> None:
-        """An incremental journal tailer: anything with ``min_frontier()``
-        (the journal package is not ported yet)."""
+        """A :class:`~repro_torch.journal.restore.JournalTails` incremental tailer."""
         self.register(name, tails.min_frontier)
 
     def frontiers(self) -> Dict[str, int]:

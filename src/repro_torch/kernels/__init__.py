@@ -6,5 +6,6 @@
 #                        validate→sequence round (batched OCC §4.2/§4.4)
 #   flash_attention.py — GQA attention forward of the LLM prefill
 #   ssm_scan.py        — chunked selective scan of the hybrid LLM prefill
-#   ops.py             — the OLTP public wrappers; ref.py their numpy oracles
+#   rwkv6.py           — chunked wkv6 recurrence of the rwkv LLM prefill
+#   ops.py             — the public wrappers; ref.py the numpy oracles
 #   cuda.py            — builds csrc/ with nvcc at first use; launch counts

@@ -22,31 +22,62 @@
 // Bound: operations, 4*D flops per unmasked (query, key) pair, against bytes
 // that read q, k, v and write o once.
 //
-// bfloat16 (flash_fwd_wgmma_kernel): on the tensor cores, in the shape of
-// FlashAttention-3. A work item is 128 query rows of one (batch, q head); the
-// grid is persistent (one block per SM walks the items, the longest causal
-// tiles first). A block has three warpgroups. The producer (registers given
-// up with setmaxnreg) issues every load by TMA, 128-B swizzled: Q into two
-// buffers, so the next item's Q arrives under this item's tiles, and K/V
-// tiles of 128 keys into a two-stage ring with full and empty mbarriers, K
+// bfloat16 (flash_fwd_wgmma_kernel<D>, D = 64, 128, 160): on the tensor
+// cores, in the shape of FlashAttention-3. A work item is 128 query rows of
+// one (batch, q head); the grid is persistent (one block per SM walks the
+// items, the longest causal tiles first). A block has three warpgroups. The
+// producer (registers given up with setmaxnreg) issues every load by TMA:
+// Q into two buffers, so the next item's Q arrives under this item's tiles,
+// and K/V tiles into a two-stage ring with full and empty mbarriers, K
 // released as soon as S is computed and V after P V. Two consumer warpgroups
 // own 64 rows each. Per tile, one wgmma group computes S = Q K^T (both
 // operands in shared memory) and another O += P V of the previous tile (P
-// from registers, V read MN-major); the softmax of S runs while P V is still
-// on the tensor cores, and named barriers make the two warpgroups take turns
-// issuing, so one's softmax also runs under the other's products. Scale,
-// softcap and mask act on the fp32 accumulator registers; each row lies in
-// one quad of threads (2 shuffles per reduction). P is rounded into a hi/lo
-// pair of bf16, P_hi = bf16(P) and P_lo = bf16(P - P_hi), and both products
-// are summed: one bf16 P breaks the one-ulp output limit in the early, peaky
-// rows, the pair keeps P to about 2^-16; l sums the unrounded P. That is 6*D
-// tensor-core flops per pair against the bound's 4*D. Keys past T arrive as
-// TMA's zero fill and are masked like any other; the output tile is staged
-// in shared memory and stored by TMA, which writes rows < S only. On the H100
-// what limits it is the CUDA-core work per tile (the softmax, the P split and
-// the exp2s on the MUFU pipe), not the tensor cores or the loads. The tensor
-// maps are encoded per call from the strides, through the driver entry point
-// that cudaGetDriverEntryPoint returns (no -lcuda at link time).
+// from registers, V read MN-major, one instruction of N = D per 16 keys);
+// the softmax of S runs while P V is still on the tensor cores, and named
+// barriers make the two warpgroups take turns issuing, so one's softmax also
+// runs under the other's products. Scale, softcap and mask act on the fp32
+// accumulator registers; each row lies in one quad of threads (2 shuffles
+// per reduction). P is rounded into a hi/lo pair of bf16, P_hi = bf16(P) and
+// P_lo = bf16(P - P_hi), and both products are summed: one bf16 P breaks the
+// one-ulp output limit in the early, peaky rows, the pair keeps P to about
+// 2^-16; l sums the unrounded P. That is 6*D tensor-core flops per pair
+// against the bound's 4*D. Keys past T arrive as TMA's zero fill and are
+// masked like any other; the output tile is staged in shared memory and
+// stored by TMA, which writes rows < S only. The tensor maps are encoded per
+// call from the strides, through the driver entry point that
+// cudaGetDriverEntryPoint returns (no -lcuda at link time).
+//
+// Tiling per head dim (struct Tiling). D 64 and 128: K/V tiles of 128 keys;
+// a tile is D/64 boxes of 64 columns, 128-B rows in TMA's 128-B swizzle. On
+// the H100 what limits them is the CUDA-core work per tile (the softmax, the
+// P split and the exp2s on the MUFU pipe), not the tensor cores or the loads.
+//
+// D = 160 (stablelm-12b). Shared memory: with 128-key tiles two Q stages,
+// two K/V stages and the O tile would take 286,720 B, over a block's
+// 232,448. So K/V tiles hold 64 keys: Q 2 x 128 x 160 x 2 = 81,920 B, K and V
+// 2 x 64 x 160 x 2 = 40,960 B each, O 40,960 B; 204,800 B before the
+// barriers and the 1,024-B alignment. Registers per consumer thread: O 80,
+// S 32, P hi/lo 32, about 144 of setmaxnreg's 232 (with 128-key tiles S and
+// P would take 64 each, 208 before addressing). Swizzle: 160 is no multiple
+// of the 128-B swizzle's 64 columns, so a tile is five boxes of 32 columns,
+// 64-B rows in the 64-B swizzle, with one tensor map per operand and
+// descriptors of layout type 2: S is 10 k-steps of m64n64k16 (two per box),
+// P V one m64n160k16 per 16 keys across the five boxes. This was chosen over
+// two 128-B boxes plus one 64-B box of 32 columns (128 + 32), which needs a
+// second tensor map per operand, two descriptor kinds in S and two
+// instructions in P V; the uniform layout keeps every loop of the D 64/128
+// kernel as it is. Padding D to 192 would need 245,760 B. ptxas (-v) gives
+// each D's kernel 168 registers (the launch bound's share before setmaxnreg),
+// no spill and no serialised wgmma. At stablelm's prefill shape (B=8,
+// S=T=2048, 32 query / 8 KV heads, causal) the bound is 0.3476 ms (4*D flops
+// per unmasked pair at 989 TFLOP/s) and the hi/lo design's tensor floor
+// 0.5214 ms (6*D). On an H100 80GB HBM3 at 700 W (tools/flash_variants.py)
+// it took 0.72-0.84 device ms, SDPA 0.69, and what limits it is the tensor
+// cores, not the softmax: without its exp2s it took the same time, without
+// the P_lo products 0.60 ms, without P V 0.45. The hi/lo pair's extra 2*D
+// flops a pair are what it pays beside SDPA. 128-key tiles in a one-stage
+// ring (the same shared memory) took 1.46 ms: ptxas serialised their wgmmas
+// for want of registers (C7512).
 //
 // float32 (flash_fwd_kernel): on the fp32 CUDA cores, because fp32 inputs
 // come from the full-width fp32 oracle and hold a 2e-4 limit that TF32 or
@@ -54,16 +85,9 @@
 // row is owned by G neighbouring threads (D/32 at D = 64 and 128, 8 at
 // D = 160, so a row's threads are a power of two and never straddle a warp)
 // holding interleaved float4 groups of q and the accumulator in registers;
-// K and V tiles are staged in shared memory as fp32; dot products are
-// reduced with warp shuffles; the online softmax takes 16 keys at a time. It
-// is bounded by the fp32 FMA rate (67 TFLOP/s).
-//
-// Head dim 160 (stablelm-12b), both dtypes: the same CUDA-core kernel,
-// instantiated for D = 160 and, for bf16, loading bf16 and widening it to
-// fp32 on the way into registers and shared memory, computing in fp32 and
-// rounding the output to bf16 (round to nearest even, as torch's cast).
-// The wgmma kernel does not take D = 160: its shared memory at D = 128
-// already fills the block's limit, and P V would need an N = 160 wgmma.
+// K and V tiles are staged in shared memory; dot products are reduced with
+// warp shuffles; the online softmax takes 16 keys at a time. It is bounded
+// by the fp32 FMA rate (67 TFLOP/s).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -98,14 +122,6 @@ struct FlashArgs {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // The CUDA-core kernel's tiling at head dim D: G threads per query row, V4
 // float4 groups of the row per thread, BK keys per shared-memory tile (two
 // fp32 tiles of BK x D stay under the 48-KB static limit: 40 KB at D = 160).
@@ -117,8 +133,7 @@ struct Fp32Tiling {
   static constexpr int BK = D == 64 ? 64 : 32;
 };
 
-// T: the type of q, k, v and o (float, or __nv_bfloat16 at D = 160).
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kBQ * Fp32Tiling<D>::G)
 flash_fwd_kernel(const FlashArgs a) {
   constexpr int G = Fp32Tiling<D>::G;       // threads per query row
@@ -137,9 +152,9 @@ flash_fwd_kernel(const FlashArgs a) {
   const long long qpos = q0 + row;
   const bool qvalid = qpos < a.s;
 
-  const T* qp = static_cast<const T*>(a.q) + bi * a.qsb + hi * a.qsh;
-  const T* kp = static_cast<const T*>(a.k) + bi * a.ksb + hk * a.ksh;
-  const T* vp = static_cast<const T*>(a.v) + bi * a.vsb + hk * a.vsh;
+  const float* qp = static_cast<const float*>(a.q) + bi * a.qsb + hi * a.qsh;
+  const float* kp = static_cast<const float*>(a.k) + bi * a.ksb + hk * a.ksh;
+  const float* vp = static_cast<const float*>(a.v) + bi * a.vsb + hk * a.vsh;
 
   // this thread's dims: float4 group (i * G + g) for i in [0, V4)
   float qr[4 * V4], acc[4 * V4];
@@ -148,7 +163,7 @@ flash_fwd_kernel(const FlashArgs a) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int d = (i * G + g) * 4 + c;
-      qr[i * 4 + c] = qvalid ? to_f32(qp[qpos * a.qss + d]) * a.scale : 0.f;
+      qr[i * 4 + c] = qvalid ? qp[qpos * a.qss + d] * a.scale : 0.f;
       acc[i * 4 + c] = 0.f;
     }
   }
@@ -168,8 +183,8 @@ flash_fwd_kernel(const FlashArgs a) {
       const long long kpos = kt + j;
       float kx = 0.f, vx = 0.f;
       if (kpos < a.t) {
-        kx = to_f32(kp[kpos * a.kss + d]);
-        vx = to_f32(vp[kpos * a.vss + d]);
+        kx = kp[kpos * a.kss + d];
+        vx = vp[kpos * a.vss + d];
       }
       ks[j][d] = kx;
       vs[j][d] = vx;
@@ -228,13 +243,13 @@ flash_fwd_kernel(const FlashArgs a) {
   }
 
   if (qvalid) {
-    T* op = static_cast<T*>(a.o) + bi * a.osb + hi * a.osh + qpos * a.oss;
+    float* op = static_cast<float*>(a.o) + bi * a.osb + hi * a.osh + qpos * a.oss;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < V4; ++i) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        op[(i * G + g) * 4 + c] = from_f32<T>(acc[i * 4 + c] / den);
+        op[(i * G + g) * 4 + c] = acc[i * 4 + c] / den;
       }
     }
     // q was scaled on load, so m is in units of the scaled scores
@@ -242,11 +257,11 @@ flash_fwd_kernel(const FlashArgs a) {
   }
 }
 
-template <int D, typename T = float>
+template <int D>
 void launch_fp32(const FlashArgs& a, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>((a.s + kBQ - 1) / kBQ),
                   static_cast<unsigned>(a.hq), static_cast<unsigned>(a.b));
-  flash_fwd_kernel<D, T><<<grid, kBQ * Fp32Tiling<D>::G, 0, st>>>(a);
+  flash_fwd_kernel<D><<<grid, kBQ * Fp32Tiling<D>::G, 0, st>>>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -254,10 +269,8 @@ void launch_fp32(const FlashArgs& a, cudaStream_t st) {
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 128;     // query rows per work item: two consumer warpgroups of 64
-constexpr int kKeys = 128;     // keys per K/V tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kQStages = 2;    // Q tiles: the next item's Q loads under this item's tiles
-constexpr int kBox = 64;       // bf16 per 128-B swizzled row: a tile of D = 128 is two boxes wide
 constexpr int kWgThreads = 128;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
@@ -272,14 +285,30 @@ struct WgmmaArgs {
   float scale;       // 1/sqrt(D)
 };
 
-// Each tile is stored as D/64 column boxes of [rows][64] bf16, 128-B rows in
-// TMA's 128-B swizzle, so every box starts on a 1024-B boundary.
+// The tiling at head dim D. A tile is stored as kBoxes column boxes of
+// [rows][kBox] bf16, each row one span of TMA's swizzle: 64 columns in the
+// 128-B swizzle at D 64 and 128, 32 columns in the 64-B swizzle at D = 160
+// (no multiple of 64). K/V tiles hold 128 keys, or 64 at D = 160, where two
+// stages of 128 would not fit beside two Q stages.
+template <int D>
+struct Tiling {
+  static_assert(D == 64 || D == 128 || D == 160, "head dim 64, 128 or 160");
+  static constexpr int kKeys = D == 160 ? 64 : 128;     // keys per K/V tile
+  static constexpr int kBox = D == 160 ? 32 : 64;       // bf16 columns per box
+  static constexpr int kRowBytes = 2 * kBox;            // a box row: the swizzle's span
+  static constexpr int kBoxes = D / kBox;
+  static constexpr uint64_t kLayout = D == 160 ? 2 : 1;  // wgmma descriptor: 64-B or 128-B swizzle
+};
+
+// Every box is a multiple of 512 B (the 64-B swizzle's period) and the
+// 128-B-swizzled ones of 1024 B (its period), from a 1024-B aligned base.
 template <int D>
 struct alignas(1024) WgmmaSmem {
-  __nv_bfloat16 q[kQStages][D / kBox][kRows * kBox];
-  __nv_bfloat16 k[kStages][D / kBox][kKeys * kBox];
-  __nv_bfloat16 v[kStages][D / kBox][kKeys * kBox];
-  __nv_bfloat16 o[D / kBox][kRows * kBox];   // the output tile, staged for its TMA store
+  using T = Tiling<D>;
+  __nv_bfloat16 q[kQStages][T::kBoxes][kRows * T::kBox];
+  __nv_bfloat16 k[kStages][T::kBoxes][T::kKeys * T::kBox];
+  __nv_bfloat16 v[kStages][T::kBoxes][T::kKeys * T::kBox];
+  __nv_bfloat16 o[T::kBoxes][kRows * T::kBox];   // the output tile, staged for its TMA store
   uint64_t q_full[kQStages];
   uint64_t q_empty[kQStages];
   uint64_t k_full[kStages];
@@ -288,6 +317,7 @@ struct alignas(1024) WgmmaSmem {
   uint64_t v_empty[kStages];
 };
 static_assert(sizeof(WgmmaSmem<128>) + 1024 <= kMaxSmem, "shared memory of the D = 128 kernel");
+static_assert(sizeof(WgmmaSmem<160>) + 1024 <= kMaxSmem, "shared memory of the D = 160 kernel");
 
 // Work item w -> (query tile, q head, batch). Items are ordered by query tile,
 // the longest first in the causal case, so the short ones fill the last wave;
@@ -301,8 +331,9 @@ __device__ __forceinline__ Item item_of(int w, const WgmmaArgs& a) {
   return Item{a.causal ? a.n_qt - 1 - rank : rank, hb % a.hq, hb / a.hq};
 }
 
-// The KV tiles of query rows [q0, q0 + kRows): none past the causal frontier
-// or wholly before the window.
+// The KV tiles of kKeys keys of query rows [q0, q0 + kRows): none past the
+// causal frontier or wholly before the window.
+template <int kKeys>
 __device__ __forceinline__ void kv_range(int q0, const WgmmaArgs& a, int& k_begin, int& n_tiles) {
   const int q_last = (q0 + kRows < a.s ? q0 + kRows : a.s) - 1;
   int k_end = a.t;
@@ -372,13 +403,23 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-B swizzle: start address, leading and
-// stride byte offsets, each in 16-B units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, each in 16-B units, and the layout type (1: 128-B swizzle, 2: 64-B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
-         (1ull << 62);
+         (layout << 62);
+}
+
+// Byte offset of 16-B chunk `chunk` of row `row` in a box of kRowBytes-wide
+// rows as TMA's swizzle of that span lays it out: the chunk index XOR bits
+// 7.. of the row's offset (128-B swizzle: row % 8; 64-B: (row / 2) % 4).
+template <int kRowBytes>
+__device__ __forceinline__ int swizzled(int row, int chunk) {
+  const int base = row * kRowBytes;
+  return base + ((chunk ^ ((base >> 7) & (kRowBytes / 16 - 1))) * 16);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -455,6 +496,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, fp32) (+)= A (64 x 16) * B (16 x 64); A and B in shared memory, both
+// K-major; scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S = Q K^T for a tile of N keys.
+template <int N>
+__device__ __forceinline__ void wgmma_s(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
+}
+
 // D (64 x 64, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 64);
 // B in shared memory, MN-major (transposed).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
@@ -495,10 +560,38 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 160, fp32) += A (64 x 16, bf16 fragments in registers) * B (16 x 160);
+// B in shared memory, MN-major (transposed): five 32-column boxes.
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P V for one 16-key step: N = D, one instruction over all of V's boxes.
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t db) {
   if constexpr (D == 64) wgmma_rs_n64(o, a, db);
-  else wgmma_rs_n128(o, a, db);
+  else if constexpr (D == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n160(o, a, db);
 }
 
 template <int D>
@@ -507,7 +600,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap to, const WgmmaArgs a) {
-  constexpr int kHalves = D / kBox;
+  using T = Tiling<D>;
+  constexpr int kKeys = T::kKeys, kBox = T::kBox, kRowBytes = T::kRowBytes, kBoxes = T::kBoxes;
+  constexpr int kSteps = kBox / 16;       // 16-dim steps of S within one box
+  constexpr int kGroups = kKeys / 8;      // groups of 4 S accumulators: 8 key columns each
+  static_assert(kGroups == 8 || kGroups == 16, "the softmax's trees take 8 or 16 groups");
   constexpr uint32_t kTileBytes = kKeys * D * 2;
   extern __shared__ unsigned char smem_raw[];
   WgmmaSmem<D>& sm = *reinterpret_cast<WgmmaSmem<D>*>(
@@ -544,11 +641,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int q0 = it.qt * kRows;
         const int hk = it.hi * a.hkv / a.hq;
         int k_begin, n_tiles;
-        kv_range(q0, a, k_begin, n_tiles);
+        kv_range<kKeys>(q0, a, k_begin, n_tiles);
         const int qs = n % kQStages;
         if (n >= kQStages) mbar_wait(&sm.q_empty[qs], ((n / kQStages) & 1) ^ 1);
         mbar_expect_tx(&sm.q_full[qs], kRows * D * 2);
-        for (int h = 0; h < kHalves; ++h)
+        for (int h = 0; h < kBoxes; ++h)
           tma_load(sm.q[qs][h], &tq, &sm.q_full[qs], h * kBox, q0, it.hi, it.bi);
         for (int i = 0; i < n_tiles; ++i, ++kv) {
           const int st = kv % kStages;
@@ -556,11 +653,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           if (kv >= kStages) mbar_wait(&sm.k_empty[st], ep);
           const int kt = k_begin + i * kKeys;
           mbar_expect_tx(&sm.k_full[st], kTileBytes);
-          for (int h = 0; h < kHalves; ++h)
+          for (int h = 0; h < kBoxes; ++h)
             tma_load(sm.k[st][h], &tk, &sm.k_full[st], h * kBox, kt, hk, it.bi);
           if (kv >= kStages) mbar_wait(&sm.v_empty[st], ep);
           mbar_expect_tx(&sm.v_full[st], kTileBytes);
-          for (int h = 0; h < kHalves; ++h)
+          for (int h = 0; h < kBoxes; ++h)
             tma_load(sm.v[st][h], &tv, &sm.v_full[st], h * kBox, kt, hk, it.bi);
         }
       }
@@ -586,7 +683,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int q0 = it.qt * kRows;
     const int qa = q0 + 64 * c;                         // the warpgroup's first row
     int k_begin, n_tiles;
-    kv_range(q0, a, k_begin, n_tiles);
+    kv_range<kKeys>(q0, a, k_begin, n_tiles);
     const int qs = n % kQStages;
 
     float o[D / 2];
@@ -594,7 +691,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
     uint32_t p_hi[kKeys / 16][4], p_lo[kKeys / 16][4];   // P of the tile whose P V is pending
-    const uint32_t q_base = smem_addr(sm.q[qs][0]) + 64 * c * 128;
+    const uint32_t q_base = smem_addr(sm.q[qs][0]) + 64 * c * kRowBytes;
     mbar_wait(&sm.q_full[qs], (n / kQStages) & 1);
     mbar_arrive_if(&sm.q_empty[qs], n_tiles == 0 && t == 0);
 
@@ -604,30 +701,34 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     auto wait_v = [&](int j) {
       mbar_wait(&sm.v_full[(kv + j) % kStages], ((kv + j) / kStages) & 1);
     };
-    // S = Q K^T for tile j: D/16 steps of 16 dims, both operands K-major in
-    // shared memory; committed as one wgmma group
+    // S = Q K^T for tile j: D/16 steps of 16 dims (32 B of a box row), both
+    // operands K-major in shared memory, 8 rows a swizzle atom; committed as
+    // one wgmma group
     auto issue_s = [&](float (&sacc)[kKeys / 2], int j) {
       const int st = (kv + j) % kStages;
       const uint32_t k_base = smem_addr(sm.k[st][0]);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
-        const uint32_t qoff = (kk / 4) * kRows * 128 + (kk % 4) * 32;
-        wgmma_ss_n128(sacc, smem_desc(q_base + qoff, 16, 1024),
-                      smem_desc(k_base + off, 16, 1024), kk > 0);
+        const uint32_t off = (kk / kSteps) * kKeys * kRowBytes + (kk % kSteps) * 32;
+        const uint32_t qoff = (kk / kSteps) * kRows * kRowBytes + (kk % kSteps) * 32;
+        wgmma_s<kKeys>(sacc, smem_desc(q_base + qoff, 16, 8 * kRowBytes, T::kLayout),
+                       smem_desc(k_base + off, 16, 8 * kRowBytes, T::kLayout), kk > 0);
       }
       wgmma_commit();
     };
-    // O += P_hi V + P_lo V for tile j: 16 keys per step, V MN-major
+    // O += P_hi V + P_lo V for tile j: 16 keys per step, V MN-major (the
+    // leading offset steps from box to box, the stride from 8 keys to 8)
     auto issue_pv = [&](int j) {
       const int st = (kv + j) % kStages;
       const uint32_t v_base = smem_addr(sm.v[st][0]);
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk)
-        wgmma_pv<D>(o, p_hi[kk], smem_desc(v_base + kk * 16 * 128, kKeys * 128, 1024));
+        wgmma_pv<D>(o, p_hi[kk], smem_desc(v_base + kk * 16 * kRowBytes, kKeys * kRowBytes,
+                                           8 * kRowBytes, T::kLayout));
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk)
-        wgmma_pv<D>(o, p_lo[kk], smem_desc(v_base + kk * 16 * 128, kKeys * 128, 1024));
+        wgmma_pv<D>(o, p_lo[kk], smem_desc(v_base + kk * 16 * kRowBytes, kKeys * kRowBytes,
+                                           8 * kRowBytes, T::kLayout));
       wgmma_commit();
     };
     // The online softmax of tile j in the log2 domain: scale, softcap and
@@ -666,7 +767,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int g = 0; g < 8; ++g) {
           mp[h][g] = fmaxf(sacc[4 * g + 2 * h], sacc[4 * g + 2 * h + 1]);
-          mp[h][g] = fmaxf(mp[h][g], fmaxf(sacc[32 + 4 * g + 2 * h], sacc[32 + 4 * g + 2 * h + 1]));
+          if constexpr (kGroups == 16)
+            mp[h][g] = fmaxf(mp[h][g], fmaxf(sacc[32 + 4 * g + 2 * h], sacc[32 + 4 * g + 2 * h + 1]));
         }
 #pragma unroll
         for (int w = 4; w >= 1; w /= 2) {
@@ -692,7 +794,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const float b0 = -mx0 * c0, b1 = -mx1 * c1;
       float sp[2][8];
 #pragma unroll
-      for (int g = 0; g < 16; ++g) {
+      for (int g = 0; g < kGroups; ++g) {
         const int e = 4 * g;
         sacc[e] = ex2(fmaf(sacc[e], c0, b0));
         sacc[e + 1] = ex2(fmaf(sacc[e + 1], c0, b0));
@@ -795,7 +897,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     kv += n_tiles;
 
-    // epilogue: o / max(l, 1e-30) in bf16, staged in the 128-B swizzle and
+    // epilogue: o / max(l, 1e-30) in bf16, staged in the boxes' swizzle and
     // stored by TMA, which writes rows < S only
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -813,18 +915,18 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (t == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     named_sync_wg(3 + c);                 // the previous item's store has read the stage
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      unsigned char* box = reinterpret_cast<unsigned char*>(sm.o[j / 8]);
-      const int sw = ((j % 8) ^ (r0 % 8)) * 16 + 2 * col0;
-      *reinterpret_cast<__nv_bfloat162*>(box + r0 * 128 + sw) =
+    for (int j = 0; j < D / 8; ++j) {          // 8 columns: one 16-B chunk of a box row
+      constexpr int kChunks = kRowBytes / 16;
+      unsigned char* box = reinterpret_cast<unsigned char*>(sm.o[j / kChunks]) + 2 * col0;
+      *reinterpret_cast<__nv_bfloat162*>(box + swizzled<kRowBytes>(r0, j % kChunks)) =
           __floats2bfloat162_rn(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-      *reinterpret_cast<__nv_bfloat162*>(box + (r0 + 8) * 128 + sw) =
+      *reinterpret_cast<__nv_bfloat162*>(box + swizzled<kRowBytes>(r0 + 8, j % kChunks)) =
           __floats2bfloat162_rn(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
     }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to the TMA unit
     named_sync_wg(3 + c);
     if (t == 0) {
-      for (int h = 0; h < kHalves; ++h)
+      for (int h = 0; h < kBoxes; ++h)
         tma_store(&to, sm.o[h] + 64 * c * kBox, h * kBox, qa, it.hi, it.bi);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     }
@@ -854,11 +956,13 @@ EncodeTiled encode_fn() {
 }
 
 // A 4-D map over (D, positions, heads, batch) of bf16 with the given element
-// strides, read in boxes of 64 x rows, 128-B swizzled; out-of-range positions
-// read as zeros. A dimension of size 1 never moves, so its stride is replaced
-// by a valid one.
-bool encode_map(CUtensorMap* map, const void* base, long long d, long long n, long long h,
+// strides, read in boxes of Tiling<D>::kBox x rows in the swizzle of that span;
+// out-of-range positions read as zeros. A dimension of size 1 never moves, so
+// its stride is replaced by a valid one.
+template <int D>
+bool encode_map(CUtensorMap* map, const void* base, long long n, long long h,
                 long long b, long long sn, long long sh, long long sb, int rows) {
+  const long long d = D;
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(n),
@@ -868,10 +972,12 @@ bool encode_map(CUtensorMap* map, const void* base, long long d, long long n, lo
       static_cast<cuuint64_t>(n > 1 ? 2 * sn : 2 * d),
       static_cast<cuuint64_t>(h > 1 ? 2 * sh : 2 * d * n),
       static_cast<cuuint64_t>(b > 1 ? 2 * sb : packed)};
-  const cuuint32_t box[4] = {kBox, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {Tiling<D>::kBox, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      Tiling<D>::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -897,10 +1003,11 @@ cudaError_t prepare(int smem, int* sms) {
 template <int D>
 int launch_bf16(const FlashArgs& f, cudaStream_t st) {
   CUtensorMap tq, tk, tv, to;
-  if (!encode_map(&tq, f.q, D, f.s, f.hq, f.b, f.qss, f.qsh, f.qsb, kRows) ||
-      !encode_map(&to, f.o, D, f.s, f.hq, f.b, f.oss, f.osh, f.osb, kRows / 2) ||
-      !encode_map(&tk, f.k, D, f.t, f.hkv, f.b, f.kss, f.ksh, f.ksb, kKeys) ||
-      !encode_map(&tv, f.v, D, f.t, f.hkv, f.b, f.vss, f.vsh, f.vsb, kKeys)) {
+  constexpr int kKeys = Tiling<D>::kKeys;
+  if (!encode_map<D>(&tq, f.q, f.s, f.hq, f.b, f.qss, f.qsh, f.qsb, kRows) ||
+      !encode_map<D>(&to, f.o, f.s, f.hq, f.b, f.oss, f.osh, f.osb, kRows / 2) ||
+      !encode_map<D>(&tk, f.k, f.t, f.hkv, f.b, f.kss, f.ksh, f.ksb, kKeys) ||
+      !encode_map<D>(&tv, f.v, f.t, f.hkv, f.b, f.vss, f.vsh, f.vsb, kKeys)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long n_qt = (f.s + kRows - 1) / kRows;
@@ -929,11 +1036,11 @@ int launch_bf16(const FlashArgs& f, cudaStream_t st) {
 // elements of q, k, v and o. lse: null, or a contiguous float32 (B, Hq, S)
 // that receives each row's natural-log log-sum-exp of its scaled, softcapped
 // and masked scores (the softmax statistics a backward recomputes P from).
-// dtype: 0 float32, 1 bfloat16; head dims 64 and 128 (bf16 on the wgmma
-// kernel) and 160 (both dtypes on the CUDA-core kernel). Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for another head dim, an
-// unknown dtype, or bf16 tensors whose TMA maps cannot be encoded (base
-// pointers must be 16-B aligned, strides multiples of 16 B).
+// dtype: 0 float32 (the CUDA-core kernel), 1 bfloat16 (the wgmma kernel);
+// head dims 64, 128 and 160 in both. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for another head dim, an unknown dtype, or bf16
+// tensors whose TMA maps cannot be encoded (base pointers must be 16-B
+// aligned, strides multiples of 16 B).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v,
                                      void* o, float* lse, const long long* meta, int dtype,
                                      int head_dim, int causal, int window,
@@ -954,9 +1061,9 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (dtype == 0 && head_dim == 64) launch_fp32<64>(a, st);
   else if (dtype == 0 && head_dim == 128) launch_fp32<128>(a, st);
   else if (dtype == 0 && head_dim == 160) launch_fp32<160>(a, st);
-  else if (dtype == 1 && head_dim == 160) launch_fp32<160, __nv_bfloat16>(a, st);
   else if (dtype == 1 && head_dim == 64) return launch_bf16<64>(a, st);
   else if (dtype == 1 && head_dim == 128) return launch_bf16<128>(a, st);
+  else if (dtype == 1 && head_dim == 160) return launch_bf16<160>(a, st);
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,9 +17,8 @@ device, inputs that require a gradient while grad mode is on (its output
 would carry none); ``_Flash`` calls it on detached inputs.
 
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/flash_attention.cu``: D of 64, 128 or 160, any S and T; bfloat16 at
-D 64 and 128 on the tensor cores with TMA loads, float32 and D = 160 in
-either type on the CUDA cores); on a CPU tensor
+(``csrc/flash_attention.cu``: D of 64, 128 or 160, any S and T; bfloat16 on
+the tensor cores with TMA loads, float32 on the CUDA cores); on a CPU tensor
 it runs :func:`flash_attention_plain`, the reference's ``attention_ref``
 computation in PyTorch ops.  The choice follows the tensors' device and
 nothing else.
@@ -29,8 +28,7 @@ and passes them to the kernel, so the model hands over ``(B, S, H, D)``
 activations as ``(B, H, S, D)`` views without a copy; the output is
 allocated in q's layout.  bfloat16 tensors must also meet the TMA rule of
 :func:`check_tma_layout`; the wrapper raises on one that does not, and
-never copies it.  (At D = 160 bfloat16 takes the CUDA-core kernel, which
-has no TMA rule.)
+never copies it.  float32 tensors have no such rule.
 """
 
 from __future__ import annotations
@@ -45,7 +43,6 @@ from . import cuda
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128, 160)
-TMA_HEAD_DIMS = (64, 128)     # the bfloat16 head dims of the tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -149,7 +146,7 @@ def flash_attention_fwd(
     if out.stride(3) != 1:
         out = torch.empty(q.shape, dtype=q.dtype, device=dev)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev) if return_lse else None
-    if q.dtype == torch.bfloat16 and d in TMA_HEAD_DIMS:
+    if q.dtype == torch.bfloat16:      # every bf16 head dim runs the TMA kernel
         check_tma_layout(q=q, k=k, v=v)
     t = k.shape[2]
     meta = (ctypes.c_longlong * 17)(

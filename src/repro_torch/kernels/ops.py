@@ -1,7 +1,9 @@
-"""Public wrappers for the OLTP device functions — where PyTorch starts.
+"""Public wrappers for the device functions — where PyTorch starts.
 
-Every function here takes and returns ``torch.int32`` tensors (``bool`` for
-the survive mask) on one explicit device.  On a CUDA tensor it launches the
+The OLTP functions take and return ``torch.int32`` tensors (``bool`` for
+the survive mask) on one explicit device; the LLM prefill's
+(:func:`flash_attention`, :func:`ssm_scan`, :func:`rwkv6`) float32 or
+bfloat16 tensors in the reference's layout.  On a CUDA tensor each launches the
 hand-written kernel (``kernels/csrc``); on a CPU tensor it runs the kernel's
 plain PyTorch version.  The choice follows the tensor's device and nothing
 else: there is no fallback from a failed launch and no switch that swaps a
@@ -17,15 +19,18 @@ shapes per op stays bounded; :func:`fused_cache_sizes` reports it.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .batch_occ import seg_reduce as _seg_reduce
 from .batch_occ import validate_sequence as _validate_sequence
 from .bucketing import jit_cache_size
+from .flash_attention import flash_attention_fwd
+from .rwkv6 import rwkv6_chunked
 from .scatter_max import _scatter_max_blocks
 from .scatter_max import ssn_scatter_max as _ssn_scatter_max
+from .ssm_scan import ssm_scan_chunked
 
 
 def kernel_device(device) -> torch.device:
@@ -59,6 +64,26 @@ def _tracks_shapes(fn):
 
     wrapper.shapes = shapes
     return wrapper
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None):
+    """q (B,Hq,S,D); k/v (B,Hkv,T,D) -> (B,Hq,S,D).  The reference's block
+    sizes and interpret switch are the TPU kernel's; the port's kernel takes
+    any S and T."""
+    return flash_attention_fwd(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def ssm_scan(x, dt, decay, bmat, cmat):
+    """Chunked selective scan (chunks of 64, the reference's default):
+    returns (y, final_state)."""
+    return ssm_scan_chunked(x, dt, decay, bmat, cmat)
+
+
+def rwkv6(r, k, v, w, u):
+    """Chunked wkv6 (chunks of 32, the reference's default): returns
+    (y, final_state)."""
+    return rwkv6_chunked(r, k, v, w, u)
 
 
 @_tracks_shapes

@@ -243,6 +243,20 @@ def test_configs_and_groups_are_the_references(arch):
                [dataclasses.astuple(g) for g in jlayer_groups(jcfg)]
 
 
+def test_layer_groups_under_a_depth_cut_are_the_references():
+    """A fault of the reference that the port keeps: ``layer_groups`` puts
+    a one-layer full-attention group at every index of
+    ``full_attn_layers``, at or past ``n_layers`` too.  hymba-1.5b cut to 8
+    layers (full attention at 0, 16 and 31) gets groups of 1, 15, 1, 14 and
+    1 layers, 32 in all, in both packages."""
+    jcfg = dataclasses.replace(jget_config("hymba-1.5b"), n_layers=8)
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=8)
+    want = [("hymba", 1, None), ("hymba", 15, 1024), ("hymba", 1, None), ("hymba", 14, 1024),
+            ("hymba", 1, None)]
+    assert [dataclasses.astuple(g) for g in jlayer_groups(jcfg)] == want
+    assert [dataclasses.astuple(g) for g in tlm.layer_groups(cfg)] == want
+
+
 def test_rwkv_param_count_divergence_is_the_references():
     """The analytic count of the rwkv family (``ArchConfig.n_params``, the
     reference's formula) takes the channel mix as 1.5·d·f where the model

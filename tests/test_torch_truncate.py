@@ -26,10 +26,12 @@ import repro.core as jcore
 import repro.core.truncate as jtruncate
 import repro.db as jdb
 import repro.db.ycsb as jycsb
+import repro.journal as jjournal
 import repro_torch.core as tcore
 import repro_torch.core.truncate as ttruncate
 import repro_torch.db as tdb
 import repro_torch.db.ycsb as tycsb
+import repro_torch.journal as tjournal
 from repro.core.engine import AdaptivePolicy as JAdaptivePolicy
 from repro_torch.core.engine import AdaptivePolicy
 
@@ -194,6 +196,53 @@ def test_consumer_frontier_caps_both_truncators(tmp_path):
     assert out["port"] == out["ref"]
     assert out["port"][0][1] == 0 and out["port"][0][4] == 0
     assert out["port"][1] > 0 and out["port"][2][4] > 0
+
+
+def _seal(engine):
+    for buf, dev in zip(engine.buffers, engine.devices):
+        with buf.flush_lock:
+            dev.seal(buf.dsn)
+
+
+def test_journal_tailer_frontier_caps_both_truncators(tmp_path):
+    """A registered journal tailer (a ``JournalTails`` over the engine's log
+    files, probed after the first phase only) caps the pass at its
+    frontier, below the checkpoint's RSN, in both packages alike: only the
+    segments at or below the frontier go.  Unregistered, the next pass
+    drops up to the RSN."""
+    out = {}
+    for pkg in PKGS:
+        core, db, truncate = PKGS[pkg]
+        journal = jjournal if pkg == "ref" else tjournal
+        root = tmp_path / pkg
+        engine = core.PoplarEngine(core.EngineConfig(
+            n_buffers=2, device_kind="ssd", device_dir=str(root / "devs"),
+            device_clock="virtual"))
+        table = db.Table()
+        workers = [db.OCCWorker(table, engine, i) for i in range(2)]
+        rng, keys = random.Random(5), [f"k{i}" for i in range(20)]
+        _run_phase(workers, keys, rng, 30, "a")
+        engine.quiesce(range(2))
+        tails = journal.JournalTails()
+        for d in engine.devices:
+            tails.lane(d.path)
+        frontier = tails.min_frontier()
+        _seal(engine)                       # phase a is each device's first segment
+        _run_phase(workers, keys, rng, 30, "b")
+        engine.quiesce(range(2))
+        ckpt_dir = str(root / "ckpt")
+        _checkpoint(core, engine, table, ckpt_dir, epoch=1)
+        registry = truncate.FrontierRegistry()
+        registry.register_journal("journal", tails)
+        tr = truncate.LogTruncator(engine, ckpt_dir, registry=registry)
+        capped, stall = _stats_view(tr.run_once()), tr.stall_ssn()
+        registry.unregister("journal")
+        out[pkg] = (frontier, capped, stall, _stats_view(tr.run_once()),
+                    [_device_view(d) for d in engine.devices])
+    assert out["port"] == out["ref"]
+    frontier, capped, stall, released, _ = out["port"]
+    assert frontier > 0 and capped[1] == frontier and stall > 0
+    assert capped[4] > 0 and released[1] == frontier + stall and released[4] > 0
 
 
 # --- the command-dep pin -------------------------------------------------------
