@@ -105,7 +105,19 @@ together), and then:
    prefill logits through the flash kernel against the same model through
    ``flash_attention_plain``, and the continuation printed beside the
    dropped (token, slot) counts;
-6a. trains at full width (``train_path``), one arch at a time:
+6a. drives the parallel layer (``parallel_path``) over a world-size-1 NCCL
+   group on a (1, 1) ("data", "model") mesh, where every leaf resolves to
+   ``Replicate()``: tinyllama-1.1b at full width (8 x 2048 tokens, bf16
+   weights, fp32 moments, ``compress_grads``) trained 3 steps unsharded
+   twice and then through ``shard_train_step`` (parameters and moments as
+   DTensors, weights gathered each step) from the same weights and batches:
+   losses, grad norms and every leaf's digest equal to the first run's bit
+   for bit where the two unsharded runs are, else within their spread, and
+   the same flash launches; ``compressed_psum`` at tinyllama's embed
+   gradient's shape equal to ``fake_quantize`` bit for bit; ``gpipe_apply``
+   on a one-stage ("pod",) mesh equal to ``sequential_reference``; the group
+   is destroyed before the next phase;
+6b. trains at full width (``train_path``), one arch at a time:
    tinyllama-1.1b and whisper-medium at full depth, hymba-1.5b at 17 of its
    32 layers, rwkv6-7b at 8 of 32, mixtral-8x22b at 1 of 56: a float32 gradient
    oracle (each kernel's training Function, ``_Flash``, ``_SsmScan``,
@@ -159,6 +171,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import (
@@ -208,6 +221,10 @@ from repro_torch.models.api import attention_calls, build_model, draw_extras
 from repro_torch.models.serve_llm import ServeEngine
 from repro_torch.models.weights import load_reference, to_reference
 from repro_torch.optim import adamw
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.parallel import pipeline
+from repro_torch.parallel.compression import compressed_psum, fake_quantize
+from repro_torch.parallel.sharding import distribute_tree, shard_train_step
 from repro_torch.train.step import make_train_step
 from repro_torch.tree import keystr_items, tree_leaves, tree_map
 from repro_torch.obs import metrics
@@ -423,6 +440,15 @@ TRAIN_RUNS = (
 # the torch-op backward) against autograd through the plain attention, each
 # leaf's gradient within this share of its largest magnitude
 TRAIN_ORACLE_TOL = 1e-4
+# the parallel layer on one card (parallel_path): tinyllama-1.1b at full
+# width, bf16 weights, fp32 moments, TRAIN_BATCH x TRAIN_SEQ tokens a step
+# and the train phase's schedule, with compress_grads; compressed_psum at
+# its embed gradient's shape; gpipe_apply with the reference test's stage
+# function at its width
+PARALLEL_ARCH = "tinyllama-1.1b"
+PARALLEL_STEPS = 3
+PSUM_SHAPE = (32000, 2048)
+PIPE_D, PIPE_M, PIPE_MB = 2048, 6, 8
 # the executing thread's stages of one BatchOCC call (trace/span.py)
 BATCH_STAGES = (tspan.ST_VALIDATE, tspan.ST_SEQUENCE, tspan.ST_ENCODE,
                 tspan.ST_PUBLISH, tspan.ST_WRITEBACK)
@@ -3092,6 +3118,169 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
     return out
 
 
+def _parallel_train_run(cfg, seed: int, dev, opt_cfg, batches, mesh=None) -> tuple:
+    """``PARALLEL_STEPS`` steps with ``compress_grads`` from the seeded
+    weights: ``make_train_step`` when ``mesh`` is None, else
+    ``shard_train_step`` over ``mesh`` (parameters and moments as DTensors).
+    Returns the readings and the final state as plain tensors."""
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = to_reference(model, release=True)    # on the model's device: the card
+    opt = adamw.init(params, opt_cfg)
+    out = {}
+    if mesh is None:
+        step_fn = make_train_step(model, opt_cfg, compress_grads=True)
+    else:
+        step_fn = shard_train_step(model, opt_cfg, mesh, compress_grads=True)
+        params = distribute_tree(params, step_fn.param_shardings)
+        opt = distribute_tree(opt, step_fn.opt_shardings)
+        leaves = tree_leaves(params)
+        out["placements"] = sorted({str(tuple(t.placements))
+                                    for t in tree_leaves({"p": params, "o": opt})})
+        # what each step's gather adds to the rank's resting weights, and
+        # whether on this mesh it is a copy at all
+        out["gather_extra_bytes"] = sum((t.numel() - t.to_local().numel()) * t.element_size()
+                                        for t in leaves)
+        out["gather_copies"] = sum(t.full_tensor().data_ptr() != t.to_local().data_ptr()
+                                   for t in leaves)
+        del leaves           # the first step's parameters are freed when it returns
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kcuda.LAUNCHES)
+    metrics, step_s = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metrics.append(m)
+    out.update(
+        losses=[float(m["loss"]) for m in metrics],
+        grad_norms=[float(m["grad_norm"]) for m in metrics],
+        step_ms_each=[t * 1e3 for t in step_s],
+        step_ms=float(np.median(step_s[1:])) * 1e3,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches=_delta(dict(kcuda.LAUNCHES), before))
+    state = {"params": params, "opt": opt}
+    if mesh is not None:
+        state = tree_map(lambda t: t.to_local(), state)
+    out["digests"] = _digests(state)
+    return out, state
+
+
+def _state_errors(got, want) -> tuple:
+    """``_leaf_errors`` over two state trees, a leaf at a time in float32."""
+    return _leaf_errors([k for k, _ in keystr_items(want)],
+                        (t.float() for t in tree_leaves(got)),
+                        (t.float() for t in tree_leaves(want)))
+
+
+def run_parallel_path(workdir: str, seed: int, smi: str, dev=torch.device("cuda")) -> dict:
+    """The parallel layer on one card, over a world-size-1 NCCL group: (a)
+    tinyllama-1.1b trained at full width unsharded twice (the spread of two
+    runs) and then through ``shard_train_step`` on a (1, 1) ("data",
+    "model") mesh, from the same weights and batches, equal to the first run
+    bit for bit where the two unsharded runs are, else within their spread;
+    (b) ``compressed_psum`` over the group equal to ``fake_quantize`` bit
+    for bit; (c) ``gpipe_apply`` on a one-stage ("pod",) mesh equal to
+    ``sequential_reference``.  The group is destroyed at the end."""
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method="file://" + os.path.join(workdir, "pg_store"),
+                            rank=0, world_size=1, device_id=torch.device("cuda", dev.index or 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        print(f"parallel_path: a world-size-1 NCCL group, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: "
+              "on one card every extent is 1, so every leaf resolves to Replicate(); "
+              "tests/test_torch_parallel.py shows real sharding on 4 CPU ranks", flush=True)
+        cfg = get_config(PARALLEL_ARCH)
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                        seed=seed))
+        rng = np.random.default_rng(seed + 2)
+        batches = [_train_batch(pipe, dev, cfg, rng) for _ in range(PARALLEL_STEPS)]
+        torch.use_deterministic_algorithms(True)
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            runs = {}
+            runs["unsharded"], first = _parallel_train_run(cfg, seed, dev, opt_cfg, batches)
+            runs["unsharded_again"], again = _parallel_train_run(cfg, seed, dev, opt_cfg, batches)
+            spread = _state_errors(again, first)
+            del again
+            torch.cuda.empty_cache()
+            runs["sharded"], got = _parallel_train_run(cfg, seed, dev, opt_cfg, batches, mesh)
+            err = _state_errors(got, first)
+            del got, first
+            torch.cuda.empty_cache()
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+        base, twin, sh = runs["unsharded"], runs["unsharded_again"], runs["sharded"]
+        same = lambda a, b: (a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"]
+                             and a["digests"] == b["digests"])
+        bitwise = same(base, twin)
+        if bitwise:
+            assert same(sh, base), (sh["losses"], base["losses"], sh["grad_norms"],
+                                    base["grad_norms"], err)
+        else:
+            loss_spread = max(abs(a - b) for a, b in zip(twin["losses"], base["losses"]))
+            assert max(abs(a - b) for a, b in zip(sh["losses"], base["losses"])) <= loss_spread
+            assert err[0] <= spread[0], (err, spread)
+        flash = [r["launches"]["flash_attention"] for r in runs.values()]
+        assert flash[0] > 0 and len(set(flash)) == 1, flash
+        for name, r in runs.items():
+            print(f"parallel_path {cfg.name} {name}: losses {r['losses']}, grad norms "
+                  f"{r['grad_norms']}; step {r['step_ms']:.1f} ms (median of steps 2-"
+                  f"{PARALLEL_STEPS}; each {[round(t, 1) for t in r['step_ms_each']]}), peak "
+                  f"{r['peak_gib']:.2f} GiB, flash launches {r['launches']['flash_attention']} | {smi}",
+                  flush=True)
+        print(f"parallel_path {cfg.name}: two unsharded runs {'bit-identical' if bitwise else 'differ'} "
+              f"(largest leaf spread {spread[0]:.3g}, {spread[1]}); sharded vs unsharded "
+              f"{'bit for bit' if bitwise else f'{err[0]:.3g} ({err[1]})'}: losses, grad norms and "
+              f"all {len(sh['digests'])} leaf digests; placements {sh['placements']}; the gather adds "
+              f"{sh['gather_extra_bytes']:,} bytes and copies {sh['gather_copies']} leaves a step; "
+              f"sharded step {sh['step_ms'] / base['step_ms'] - 1:+.2%} on the unsharded | {smi}",
+              flush=True)
+        for r in runs.values():
+            del r["digests"]
+        out = {"arch": cfg.name, "steps": PARALLEL_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+               "runs": runs, "bitwise": bitwise, "spread": spread[0], "sharded_err": err[0]}
+
+        # (b) the int8 all-reduce over the group at the embed gradient's shape
+        x = torch.randn(PSUM_SHAPE, generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+        got = compressed_psum(x, mesh, "data")
+        assert torch.equal(got, fake_quantize(x)), "compressed_psum != fake_quantize on one rank"
+        psum_ms = _median_ms(lambda: compressed_psum(x, mesh, "data"))
+        fq_ms = _median_ms(lambda: fake_quantize(x))
+        print(f"parallel_path compressed_psum {PSUM_SHAPE} float32 over a 1-rank NCCL group: equal "
+              f"to fake_quantize bit for bit; {psum_ms:.4f} ms (fake_quantize {fq_ms:.4f} ms) | {smi}",
+              flush=True)
+        out["compressed_psum"] = {"shape": list(PSUM_SHAPE), "ms": psum_ms, "fake_quantize_ms": fq_ms}
+        del x, got
+
+        # (c) the pipeline on a one-stage pod mesh
+        pod = make_mesh((1,), ("pod",))
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        params = {"w": torch.randn(1, PIPE_D, PIPE_D, generator=g, device=dev) * 0.5 / PIPE_D**0.5}
+        xs = torch.randn(PIPE_M, PIPE_MB, PIPE_D, generator=g, device=dev)
+        stage_fn = lambda p, v: torch.tanh(v @ p["w"])
+        pipeline.reset_hops()
+        piped = pipeline.gpipe_apply(stage_fn, params, xs, pod)
+        ref = pipeline.sequential_reference(stage_fn, params, xs)
+        assert piped.shape == (PIPE_M, PIPE_MB, PIPE_D) and torch.equal(piped, ref)
+        ticks = PIPE_M + pod.size(0) - 1
+        print(f"parallel_path gpipe_apply: {pod.size(0)} stage, M={PIPE_M}, mb={PIPE_MB}, D={PIPE_D}, {ticks} "
+              f"ticks, hops {dict(pipeline.HOPS)}: equal to sequential_reference bit for bit | {smi}",
+              flush=True)
+        out["gpipe"] = {"stages": pod.size(0), "micro": PIPE_M, "mb": PIPE_MB, "d": PIPE_D, "ticks": ticks}
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3250,6 +3439,20 @@ def main(argv=None) -> int:
         serve["allocated_gib_after_free"] = torch.cuda.memory_allocated() / 2**30
         print("serve_path " + json.dumps(serve, default=float))
         tick(f"serve_path {arch}")
+
+    # the parallel layer, with its own counts
+    workdir = tempfile.mkdtemp(prefix="chip_smoke-")
+    try:
+        kcuda.reset_launches()
+        par = run_parallel_path(workdir, args.seed, smi)
+        par["launches"] = dict(kcuda.LAUNCHES)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    assert not dist.is_initialized()
+    assert par["launches"]["flash_attention"] > 0, "flash_attention never launched on parallel_path"
+    print(f"parallel_path launches {par['launches']} ({par['seconds']:.1f} s) | {smi}")
+    print("parallel_path " + json.dumps(par, default=float))
+    tick("parallel_path")
 
     # training, one arch at a time, each with its own counts
     for run in TRAIN_RUNS:

@@ -35,8 +35,10 @@ step and the optimizer work on.  Attention, the scan and wkv6 run their
 kernels forward and their torch-op backwards (``attention._Flash``,
 ``ssm._SsmScan``, ``rwkv._Wkv6``).
 
-The reference's ``constrain`` sharding hints are no-ops outside a mesh
-and are not ported: one card has no mesh.
+The reference's ``constrain`` sharding hints pin activation shardings for
+its compiler; the port's counterpart is ``parallel/axes.py``, and the model
+calls none: the sharded step (``parallel/sharding.py``) gathers the weights
+and computes on plain tensors.
 """
 
 from __future__ import annotations

@@ -88,9 +88,10 @@ def _nest(flat) -> Dict[str, Any]:
 
 
 @torch.no_grad()
-def to_reference(model: Model, device="cpu", release: bool = False) -> Dict[str, Any]:
+def to_reference(model: Model, device=None, release: bool = False) -> Dict[str, Any]:
     """The model's parameters in the reference's tree, stacked over their
-    layers, as detached tensors on ``device`` in their own dtypes:
+    layers, as detached tensors on ``device`` (None: the device that holds
+    the model's parameters) in their own dtypes:
     ``load_reference(model, to_reference(model))`` changes nothing.
 
     ``release=True`` hands the parameters over: each of the model's
@@ -99,6 +100,7 @@ def to_reference(model: Model, device="cpu", release: bool = False) -> Dict[str,
     5 GB).  The model then holds no weights: it serves no more, and trains
     only through ``train_loss(tree, batch)``."""
     lm = model.lm
+    device = model.device if device is None else device
     stacks = lm.stacks()
     in_blocks = {id(p) for _, blocks in stacks for p in blocks.parameters()}
 

@@ -78,10 +78,12 @@ def global_norm(tree) -> torch.Tensor:
 UPDATE_PART = 1 << 26      # elements of a leaf updated at once
 
 
-def update(grads, state, params, cfg: AdamWConfig):
-    """Returns ``(new_params, new_state, metrics)``."""
+def update(grads, state, params, cfg: AdamWConfig, grad_norm=None):
+    """Returns ``(new_params, new_state, metrics)``.  ``grad_norm``: the
+    norm to clip by, where ``grads`` are one rank's slices of the gradient
+    (the sharded step's); None for the norm of ``grads``."""
     count = state["count"] + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     lr = schedule(cfg, count)
     b1c = 1.0 - torch.pow(cfg.b1, count.float())

@@ -1,3 +1,4 @@
-# Gradient compression (compression.py).  The mesh-bound parts of the
-# reference's parallel package (compressed_psum, sharding, pipeline) wait
-# for a multi-card slice.
+# The parallel layer: logical-axis placements on a DeviceMesh and the
+# sharded train step (sharding.py), the logical constraint context
+# (axes.py), int8 gradient compression and its all-reduce
+# (compression.py), and the GPipe pipeline (pipeline.py).

@@ -23,23 +23,27 @@ from ..parallel import compression
 from ..tree import tree_leaves, tree_map, tree_unflatten_like
 
 
+def loss_and_grads(model: Model, params, batch: Dict[str, torch.Tensor]):
+    """``(loss, grads)``: the model's ``train_loss`` of ``batch`` and its
+    gradients with respect to the leaves of ``params``, as a tree of
+    ``params``' structure."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
+    with torch.enable_grad():
+        loss = model.train_loss(live, batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten_like(params, list(grads))
+
+
 def make_train_step(
     model: Model,
     opt_cfg: adamw.AdamWConfig,
     accum_steps: int = 1,
     compress_grads: bool = False,
 ):
-    def _grads(params, batch):
-        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        leaves = tree_leaves(live)
-        with torch.enable_grad():
-            loss = model.train_loss(live, batch)
-            grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), tree_unflatten_like(params, list(grads))
-
     def step(params, opt_state, batch: Dict[str, torch.Tensor]):
         if accum_steps == 1:
-            loss, grads = _grads(params, batch)
+            loss, grads = loss_and_grads(model, params, batch)
         else:
             # split every leading-batch leaf into accum_steps microbatches
             def _split(x):
@@ -52,7 +56,7 @@ def make_train_step(
                             params)
             loss_sum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
             for i in range(accum_steps):
-                loss, grads = _grads(params, {k: v[i] for k, v in micro.items()})
+                loss, grads = loss_and_grads(model, params, {k: v[i] for k, v in micro.items()})
                 gsum = tree_map(lambda a, g: a + g.float(), gsum, grads)
                 loss_sum = loss_sum + loss
             grads = tree_map(lambda g: (g / accum_steps).to(torch.bfloat16), gsum)

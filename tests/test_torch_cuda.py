@@ -1309,3 +1309,83 @@ def test_train_cli_runs_on_the_card(cuda_device, tmp_path, capsys, arch, width):
     assert "[journal] last committed step: 1" in out
     kernel = "ssm_scan_chunked" if arch == "hymba-1.5b" else "rwkv6_chunked"
     assert cuda.LAUNCHES[kernel] - n0[kernel] == 2 * 2 * 2       # 2 layers, 2 steps, recompute
+
+
+@pytest.fixture
+def nccl_group(cuda_device, tmp_path):
+    """A world-size-1 NCCL process group, met through a file under
+    ``tmp_path``, destroyed after the test."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield cuda_device
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compressed_psum_on_one_card_is_fake_quantize(nccl_group):
+    """On one rank the shared scale is the rank's own and the requantized
+    payload is ``q``: the int8 all-reduce equals ``fake_quantize`` bit for
+    bit, ragged tail chunk and all-zero chunk included."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.compression import compressed_psum, fake_quantize
+
+    mesh = make_mesh((1,), ("data",))
+    g = torch.Generator(device=nccl_group).manual_seed(0)
+    x = torch.randn(3000, 700, generator=g, device=nccl_group)
+    x[:4] = 0.0
+    got = compressed_psum(x, mesh, "data")
+    assert got.device.type == "cuda" and torch.equal(got, fake_quantize(x))
+
+
+def test_sharded_step_on_the_card_equals_the_unsharded_step(nccl_group):
+    """Reduced tinyllama with the flash kernel's head dim, float32, TF32
+    off, ``compress_grads``: two steps of ``shard_train_step`` on a (1, 1)
+    mesh against ``make_train_step`` on the same weights and batches; every
+    leaf within 1e-5 of its largest magnitude (the embedding's backward adds
+    with atomics on the card, so two runs need not be bit-identical), the
+    same flash launches."""
+    from repro_torch.configs.base import ShapeConfig, reduced
+    from repro_torch.configs.registry import get_config, make_inputs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.models.weights import to_reference
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.sharding import distribute_tree, shard_train_step
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("tinyllama-1.1b"), head_dim=64, n_heads=4, n_kv_heads=2)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batches = [make_inputs(cfg, ShapeConfig("t", 128, 4, "train"), seed=i) for i in range(2)]
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = []
+    for sharded in (False, True):
+        model = build_model(cfg, dtype=torch.float32).init(
+            torch.Generator(device=nccl_group).manual_seed(0))
+        params = to_reference(model)
+        assert tree_leaves(params)[0].device.type == "cuda"
+        opt = adamw.init(params, opt_cfg)
+        if sharded:
+            step = shard_train_step(model, opt_cfg, mesh, compress_grads=True)
+            params = distribute_tree(params, step.param_shardings)
+            opt = distribute_tree(opt, step.opt_shardings)
+        else:
+            step = make_train_step(model, opt_cfg, compress_grads=True)
+        n0 = cuda.LAUNCHES["flash_attention"]
+        losses = []
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+        state = {"params": params, "opt": opt}
+        if sharded:
+            state = tree_map(lambda t: t.to_local(), state)
+        out.append((losses, state, cuda.LAUNCHES["flash_attention"] - n0))
+    (want_losses, want, want_n), (losses, got, n) = out
+    assert n == want_n == 2 * 2 * cfg.n_layers       # 2 steps, forward and recompute
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5)
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))

@@ -11,7 +11,9 @@ and its kernel mode never runs quietly on the CPU.
   ``recover_sharded(mode="kernel")``, ``ReplicaApplier``, ``Replica``,
   ``ShardedReplica``, the serving tier's ``SingleBackend.make()`` and
   ``ShardedBackend.make()``, ``build_model`` (and so ``train_loss``), the
-  serve CLI and the train CLI on the default device raise; each of the OLTP ones runs with ``device="cpu"``.
+  serve CLI, the train CLI, ``make_smoke_mesh()`` and
+  ``make_production_mesh()`` on the default device raise; each of the OLTP
+  ones runs with ``device="cpu"``.
 * The kernel wrappers pick the kernel or the plain version by the tensor's
   device alone: no environment switch exists.
 """
@@ -69,6 +71,8 @@ def test_fresh_import_leaves_jax_and_reference_out():
         "import repro_torch.trace.tune, repro_torch.journal, repro_torch.optim.adamw\n"
         "import repro_torch.parallel.compression, repro_torch.train.step\n"
         "import repro_torch.data.pipeline, repro_torch.launch.train, repro_torch.tree\n"
+        "import repro_torch.parallel.sharding, repro_torch.parallel.axes\n"
+        "import repro_torch.parallel.pipeline, repro_torch.launch.mesh\n"
         "from repro_torch.configs.registry import ARCH_NAMES, get_config\n"
         "[get_config(a) for a in ARCH_NAMES]\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes')]\n"
@@ -248,3 +252,12 @@ def test_no_environment_switch_in_the_kernel_modules():
                  "ssm_scan.py", "rwkv6.py", "cuda.py"):
         src = (PORT / "kernels" / name).read_text()
         assert "environ" not in src and "getenv" not in src, name
+
+
+def test_meshes_without_cuda_raise(no_cuda):
+    from repro_torch.launch.mesh import make_mesh, make_production_mesh, make_smoke_mesh
+
+    for build in (make_smoke_mesh, make_production_mesh,
+                  lambda: make_smoke_mesh(multi_pod=True), lambda: make_mesh((1,), ("data",))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()                                        # default: cuda
