@@ -117,7 +117,16 @@ together), and then:
    gradient's shape equal to ``fake_quantize`` bit for bit; ``gpipe_apply``
    on a one-stage ("pod",) mesh equal to ``sequential_reference``; the group
    is destroyed before the next phase;
-6b. trains at full width (``train_path``), one arch at a time:
+6b. checks the dry run against the card (``dryrun_path``): the cost mode
+   (``parallel/cost_analysis.py``) over ``parallel_path``'s unsharded step
+   on meta tensors, whose counted flash ops must equal the step's launches
+   and whose roofline lower bound (no smaller than its flop bound) must not
+   exceed the step time just measured (its predicted peak is printed beside
+   the measured one); then, in a subprocess (no fake process group beside the smoke's),
+   ``python -m repro_torch.launch.dryrun`` on tinyllama-1.1b's train_4k
+   cell on both production meshes and its decode_32k cell on the single-pod
+   one, each ``ok``; at most ``DRYRUN_LIMIT_S``;
+6c. trains at full width (``train_path``), one arch at a time:
    tinyllama-1.1b and whisper-medium at full depth, hymba-1.5b at 17 of its
    32 layers, rwkv6-7b at 8 of 32, mixtral-8x22b at 1 of 56: a float32 gradient
    oracle (each kernel's training Function, ``_Flash``, ``_SsmScan``,
@@ -203,8 +212,12 @@ from repro_torch.kernels.batch_occ import (
     validate_sequence,
     validate_sequence_plain,
 )
-from repro_torch.kernels.flash_attention import flash_attention_fwd, flash_attention_plain
-from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_chunked_plain
+from repro_torch.kernels.flash_attention import (
+    attention_pairs,
+    flash_attention_fwd,
+    flash_attention_plain,
+)
+from repro_torch.kernels.rwkv6 import block_flops, rwkv6_chunked, rwkv6_chunked_plain
 from repro_torch.kernels import scatter_max
 from repro_torch.kernels.scatter_max import NO_POS, ssn_scatter_max, ssn_scatter_max_plain
 from repro_torch.kernels.ssm_scan import ssm_scan_chunked, ssm_scan_chunked_plain
@@ -221,9 +234,11 @@ from repro_torch.models.api import attention_calls, build_model, draw_extras
 from repro_torch.models.serve_llm import ServeEngine
 from repro_torch.models.weights import load_reference, to_reference
 from repro_torch.optim import adamw
+from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.parallel import pipeline
 from repro_torch.parallel.compression import compressed_psum, fake_quantize
+from repro_torch.parallel.cost_analysis import analyze
 from repro_torch.parallel.sharding import distribute_tree, shard_train_step
 from repro_torch.train.step import make_train_step
 from repro_torch.tree import keystr_items, tree_leaves, tree_map
@@ -449,6 +464,9 @@ PARALLEL_ARCH = "tinyllama-1.1b"
 PARALLEL_STEPS = 3
 PSUM_SHAPE = (32000, 2048)
 PIPE_D, PIPE_M, PIPE_MB = 2048, 6, 8
+# the dry run's phase (dryrun_path): its subprocess cells and its time limit
+DRYRUN_CELLS = (("train_4k", "both"), ("decode_32k", "single"))
+DRYRUN_LIMIT_S = 120
 # the executing thread's stages of one BatchOCC call (trace/span.py)
 BATCH_STAGES = (tspan.ST_VALIDATE, tspan.ST_SEQUENCE, tspan.ST_ENCODE,
                 tspan.ST_PUBLISH, tspan.ST_WRITEBACK)
@@ -804,18 +822,6 @@ def _close(got, want, dtype):
     return err
 
 
-def _attn_pairs(s: int, t: int, window, causal: bool = True) -> int:
-    """Unmasked (query, key) pairs of an attention: the work this mask
-    needs (bidirectional: every pair)."""
-    if not causal:
-        return s * t
-    q = np.arange(s)
-    n = np.minimum(q + 1, t)
-    if window is not None:
-        n = np.minimum(n, window)
-    return int(n.sum())
-
-
 # the plain version holds the whole (B, Hq, S, T) float32 score matrix a few
 # times over; past this size it runs one batch row and KV head at a time
 PLAIN_SCORES_BYTES = 8 << 30
@@ -871,7 +877,7 @@ def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64, train=False, 
     del want, want_lse
     esz = q.element_size()
     nbytes = esz * (2 * b * hq * s * d + 2 * b * hkv * t * d)
-    flops = 4 * d * b * hq * _attn_pairs(s, t, window, causal)
+    flops = 4 * d * b * hq * attention_pairs(s, t, window, causal)
     peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
     if softcap is not None:
         lib, library = None, "none: SDPA takes no softcap"
@@ -948,16 +954,6 @@ def _ssm_case(gen, b, s, dtype, dev):
     )
 
 
-def _rwkv6_flops(b, h, s, kd, vd, c=32):
-    """The block form's flops at chunk c: per chunk and head, the state
-    term and the state update (2cKV each), A's lower triangle (4 per pair
-    and channel: the exponent's difference, two products, the sum; the exp
-    aside) and diagonal (3 per channel), and A v over s <= t; chunks
-    counted as s / c, the steps this input has."""
-    per_chunk = 4 * c * kd * vd + 2 * c * (c - 1) * kd + 3 * c * kd + c * (c + 1) * vd
-    return int(b * h * per_chunk * s / c)
-
-
 def _rwkv6_case(gen, b, s, dtype, dev):
     h, kd = 64, 64
     # the model's (B, S, H, K) activations as (B, H, S, K) views; w as the
@@ -990,7 +986,7 @@ def _rwkv6_case(gen, b, s, dtype, dev):
         device_ops_per_call=ops,
         phase_device_ms=phases,
         plain_ms=_median_ms(lambda: rwkv6_chunked_plain(*args), reps=5),
-        bound=_bound(nbytes, _rwkv6_flops(b, h, s, kd, kd), FP32_FLOPS), library_ms=None,
+        bound=_bound(nbytes, block_flops(b, h, s, kd, kd), FP32_FLOPS), library_ms=None,
         source="src/repro_torch/kernels/csrc/rwkv6.cu",
         replaces="src/repro/kernels/rwkv6.py:89",
     )
@@ -2913,7 +2909,7 @@ def _train_flops(cfg, params, b: int, s: int):
         pairs += cfg.enc_dec.enc_layers * f * f + cfg.n_layers * s * f
     if cfg.rwkv is not None:
         return flops, " + ".join(terms)
-    pairs += sum(g.n_layers * _attn_pairs(s, s, g.window) for g in lm_mod.layer_groups(cfg))
+    pairs += sum(g.n_layers * attention_pairs(s, s, g.window) for g in lm_mod.layer_groups(cfg))
     flops += 12 * cfg.n_heads * cfg.hd * pairs * b
     terms.append(f"12 x {cfg.n_heads} x {cfg.hd} x {pairs:,} x {b}")
     return flops, " + ".join(terms)
@@ -3281,6 +3277,93 @@ def run_parallel_path(workdir: str, seed: int, smi: str, dev=torch.device("cuda"
     return out
 
 
+def run_dryrun_path(par: dict, seed: int, smi: str) -> dict:
+    """The dry run held against the card.  (a) In this process, on meta
+    tensors: the cost mode over ``parallel_path``'s unsharded step
+    (``make_train_step`` with ``compress_grads``, tinyllama-1.1b at 8 x
+    2048), whose counted flash ops must equal the launches a step of it
+    made, and whose roofline lower bound must not exceed the measured step:
+    a lower bound above a measurement means the count is wrong.  The bound
+    is the largest of its compute (the flop bound: ``dot_flops`` at the bf16
+    peak), memory and collective terms, so the flop bound is held too; the
+    gate catches only an overcount larger than the step over the bound.
+    Its predicted peak is printed
+    beside the first run's measured one, not gated.  (b) In a subprocess,
+    so that its fake process group never meets this process's groups: the
+    dry run's CLI on ``DRYRUN_CELLS``, each cell ``ok``."""
+    t_phase = time.perf_counter()
+    cfg = get_config(PARALLEL_ARCH)
+    model = build_model(cfg, device="meta")
+    params = to_reference(model, release=True)
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_TOTAL)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                                    seed=seed))
+    batch = _train_batch(pipe, torch.device("meta"), cfg, np.random.default_rng(seed + 2))
+    cost = analyze(make_train_step(model, opt_cfg, compress_grads=True), params,
+                   adamw.init(params, opt_cfg), batch)
+    run = par["runs"]["unsharded"]
+    launched = run["launches"]["flash_attention"] / PARALLEL_STEPS
+    counted = cost.kernel_ops.get("flash_attention", 0)
+    assert counted == launched, f"dryrun_path: {counted} flash ops counted, {launched} launched a step"
+    roof = dryrun.roofline(cost.dot_flops, cost.traffic_bytes, cost.collective_traffic)
+    flop_ms = cost.dot_flops / dryrun.PEAK_FLOPS * 1e3
+    bound_ms = roof["step_s_lower_bound"] * 1e3
+    assert bound_ms <= run["step_ms"], (bound_ms, run["step_ms"])
+    peak_gib = cost.peak_bytes / 2**30
+    print(f"dryrun_path {cfg.name} unsharded step on meta ({TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"compress_grads): {counted} flash ops counted = {launched:.0f} launched a step; "
+          f"{cost.dot_flops:.4g} flops ({flop_ms:.1f} ms at the bf16 peak), {cost.traffic_bytes:.4g} "
+          f"bytes ({roof['memory_s'] * 1e3:.1f} ms at {dryrun.HBM_BW:.3g} B/s), roofline lower bound "
+          f"{bound_ms:.1f} ms ({roof['bottleneck']}) <= measured step {run['step_ms']:.1f} ms "
+          f"({bound_ms / run['step_ms']:.3f} of it); peak {peak_gib:.2f} GiB predicted, "
+          f"{run['peak_gib']:.2f} GiB measured in the first run (ratio {peak_gib / run['peak_gib']:.3f}, "
+          f"not gated) | {smi}", flush=True)
+    out = {"arch": cfg.name, "counted_flash_ops": counted, "launched_flash_per_step": launched,
+           "dot_flops": cost.dot_flops, "traffic_bytes": cost.traffic_bytes,
+           "convert_traffic": cost.convert_traffic, "flop_bound_ms": flop_ms,
+           "roofline": roof, "measured_step_ms": run["step_ms"], "peak_gib_predicted": peak_gib,
+           "peak_gib_measured": run["peak_gib"]}
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-dryrun-") as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", PARALLEL_ARCH,
+             "--shape", shape, "--mesh", mesh, "--out", tmp],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for shape, mesh in DRYRUN_CELLS]
+        try:
+            logs = [p.communicate(timeout=DRYRUN_LIMIT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, log in zip(procs, logs):
+            assert p.returncode == 0, f"dryrun_path: the dry run's CLI failed:\n{log[-3000:]}"
+        cells = []
+        for name in sorted(os.listdir(tmp)):
+            with open(os.path.join(tmp, name)) as f:
+                r = json.load(f)
+            assert r["status"] == "ok", (name, r.get("error"))
+            roof = r["roofline"]
+            print(f"dryrun_path {r['arch']} {r['shape']} {r['mesh']} ({r['n_chips']} ranks, fake "
+                  f"group, meta): per device peak {r['memory']['peak_gb']:.2f} GB (at rest "
+                  f"{r['memory']['argument_bytes'] / 1e9:.3f} GB), {r['flops_per_device']:.4g} flops, "
+                  f"{r['bytes_per_device']:.4g} bytes, collectives {r['collective_traffic_per_device']:.4g} "
+                  f"bytes {json.dumps(r['collectives'])}, bottleneck {roof['bottleneck']}, step >= "
+                  f"{roof['step_s_lower_bound']:.4f} s (datasheet H100 constants); traced in "
+                  f"{r['trace_s']} s", flush=True)
+            cells.append({k: r[k] for k in ("arch", "shape", "mesh", "n_chips", "memory",
+                                            "flops_per_device", "bytes_per_device", "collectives",
+                                            "collective_traffic_per_device", "roofline", "trace_s")})
+    assert len(cells) == sum(2 if mesh == "both" else 1 for _, mesh in DRYRUN_CELLS), cells
+    out["cells"] = cells
+    out["seconds"] = time.perf_counter() - t_phase
+    assert out["seconds"] <= DRYRUN_LIMIT_S, f"dryrun_path took {out['seconds']:.1f} s"
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3453,6 +3536,15 @@ def main(argv=None) -> int:
     print(f"parallel_path launches {par['launches']} ({par['seconds']:.1f} s) | {smi}")
     print("parallel_path " + json.dumps(par, default=float))
     tick("parallel_path")
+
+    # the dry run on meta tensors, held against parallel_path's measured step;
+    # it launches nothing
+    kcuda.reset_launches()
+    dry = run_dryrun_path(par, args.seed, smi)
+    assert not any(kcuda.LAUNCHES.values()), kcuda.LAUNCHES
+    print(f"dryrun_path ({dry['seconds']:.1f} s) | {smi}")
+    print("dryrun_path " + json.dumps(dry, default=float))
+    tick("dryrun_path")
 
     # training, one arch at a time, each with its own counts
     for run in TRAIN_RUNS:

@@ -17,7 +17,10 @@ current for its own scope only (``csrc/device_guard.cuh``: ``cudaSetDevice``
 only when the caller's current device differs, restored on return),
 launches on that stream and returns ``cudaGetLastError()``; :func:`check`
 raises on anything but 0.  :data:`LAUNCHES` counts, per kernel, the wrapper
-calls that launched it.
+calls that launched it.  Each LLM kernel also has one dispatcher op
+(:func:`define_op`) with a Meta kernel only, which gives the launch's
+outputs on the meta device; the wrappers send meta calls through the op and
+call the launch directly on the card.
 """
 
 from __future__ import annotations
@@ -85,6 +88,27 @@ def refuse_grad(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the kernel has no backward; call it under "
                            f"torch.no_grad() or on detached inputs")
+
+
+# the ``repro_torch`` operator namespace: one dispatcher op per LLM kernel
+_ops_lib = None
+
+
+def define_op(name: str, schema: str, meta: Callable):
+    """Register the operator ``repro_torch::name`` with ``schema`` (its
+    arguments and results) and ``meta`` as its only kernel, the Meta one,
+    which allocates the launch's outputs on the meta device and runs
+    nothing (the counterpart of a Pallas kernel's abstract evaluation).
+    Returns the op's overload (``torch.ops.repro_torch.<name>.default``),
+    whose every call is one op that a ``TorchDispatchMode`` sees."""
+    global _ops_lib
+    import torch
+
+    if _ops_lib is None:
+        _ops_lib = torch.library.Library("repro_torch", "DEF")
+    _ops_lib.define(name + schema)
+    _ops_lib.impl(name, meta, "Meta")
+    return getattr(torch.ops.repro_torch, name).default
 
 
 def reset_launches() -> None:

@@ -20,8 +20,16 @@ On a CUDA tensor it launches the hand-written kernel
 (``csrc/flash_attention.cu``: D of 64, 128 or 160, any S and T; bfloat16 on
 the tensor cores with TMA loads, float32 on the CUDA cores); on a CPU tensor
 it runs :func:`flash_attention_plain`, the reference's ``attention_ref``
-computation in PyTorch ops.  The choice follows the tensors' device and
-nothing else.
+computation in PyTorch ops.  On a meta tensor it runs every check of the
+card's branch (the TMA rule on strides only) and returns meta outputs of the
+kernel's shapes and dtypes: the card's program, shapes only, which the dry
+run (``launch/dryrun.py``) counts.  The choice follows the tensors' device
+and nothing else.  On meta a call is one dispatcher op,
+``repro_torch::flash_attention`` (:data:`OP`), whose only kernel, the Meta
+one, allocates the outputs; :func:`op_cost` gives its flops and bytes.  On
+the card the wrapper calls the launch directly: whether a dispatcher op
+costs a call host time there is not resolved within the host's noise
+(``tools/flash_op_ab.py``), so the launch keeps its direct route.
 
 Layout: the wrapper takes any strides whose last (head) dim is contiguous
 and passes them to the kernel, so the model hands over ``(B, S, H, D)``
@@ -35,8 +43,9 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import cuda
@@ -61,9 +70,10 @@ def check_tma_layout(**tensors: torch.Tensor) -> None:
     """Raise ``ValueError`` unless every ``(B, H, S, D)`` tensor can be read
     by TMA: its base pointer 16-B aligned and its batch, head and position
     strides multiples of 16 B (a dimension of size 1 never moves, so its
-    stride is free)."""
+    stride is free).  A meta tensor has no pointer: its strides are
+    checked."""
     for name, x in tensors.items():
-        if x.data_ptr() % 16:
+        if x.device.type != "meta" and x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name}'s base pointer is not 16-B aligned")
         for dim, what in enumerate(("batch", "head", "position")):
             if x.shape[dim] > 1 and (x.stride(dim) * x.element_size()) % 16:
@@ -102,6 +112,99 @@ def flash_attention_plain(
     return out
 
 
+def _check_kernel_inputs(q, k, v, window, softcap) -> None:
+    """What the kernel takes, checked alike on the card and on meta: one
+    float type, head dim 64, 128 or 160, contiguous head dims, a positive
+    window and softcap, and bfloat16's TMA rule."""
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    d = q.shape[3]
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash_attention: the kernel takes head dim 64, 128 or 160, not {d}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name}'s head dim must be contiguous")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be positive, not {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention: softcap must be positive, not {softcap}")
+    if q.dtype == torch.bfloat16:      # every bf16 head dim runs the TMA kernel
+        check_tma_layout(q=q, k=k, v=v)
+
+
+def _outputs(q, return_lse: bool):
+    """The kernel's outputs, allocated in q's layout; ``lse`` only when it
+    is asked for."""
+    out = torch.empty_like(q)
+    if out.stride(3) != 1:
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    b, hq, s, _ = q.shape
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) if return_lse else None
+    return out, lse
+
+
+def _launch(q, k, v, causal, window, softcap, return_lse):
+    """One launch on checked inputs (``window`` and ``softcap`` 0 for
+    none); returns ``(out, lse or None)``."""
+    out, lse = _outputs(q, return_lse)
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    dev = q.device
+    meta = (ctypes.c_longlong * 17)(
+        b, hq, hkv, s, t,
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(2),
+    )
+    err = cuda.lib().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), meta,
+        _DTYPES[q.dtype], d, int(causal), window, softcap, 1.0 / math.sqrt(d), dev.index,
+        cuda.current_stream(dev.index),
+    )
+    cuda.check(err, "flash_attention")
+    cuda.count_launch("flash_attention")
+    return out, lse
+
+
+def _meta(q, k, v, causal, window, softcap, return_lse):
+    """The outputs' shapes and dtypes, nothing launched; the op's schema
+    returns two tensors, so an empty ``lse`` when none is asked for."""
+    out, lse = _outputs(q, return_lse)
+    return out, q.new_empty((0,), dtype=torch.float32) if lse is None else lse
+
+
+OP = cuda.define_op(
+    "flash_attention",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, float softcap, bool return_lse)"
+    " -> (Tensor, Tensor)",
+    _meta)
+
+
+def attention_pairs(s: int, t: int, window: Optional[int], causal: bool = True) -> int:
+    """Unmasked (query, key) pairs of one (batch row, head): the work the
+    mask leaves.  Query i sees keys j < t with j <= i when causal and
+    i - j < window when windowed (positions from 0 on both sides, as the
+    kernel masks)."""
+    q = np.arange(s, dtype=np.int64)
+    hi = np.minimum(q, t - 1) if causal else np.full(s, t - 1, dtype=np.int64)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, dtype=np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def op_cost(q, k, v, causal, window, softcap, return_lse) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one kernel call, from the op's arguments:
+    4·D flops per unmasked pair and head (the two products, QK and PV), and
+    q, k and v read once, the output (and ``lse``) written once."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    flops = 4 * d * b * hq * attention_pairs(s, t, window or None, causal)
+    nbytes = q.element_size() * (2 * b * hq * s * d + 2 * b * hkv * t * d)
+    return flops, nbytes + (4 * b * hq * s if return_lse else 0)
+
+
 def flash_attention_fwd(
     q: torch.Tensor,      # (B, Hq, S, D)
     k: torch.Tensor,      # (B, Hkv, T, D)
@@ -128,40 +231,10 @@ def flash_attention_fwd(
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap,
                                      return_lse=return_lse)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {dev}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: q/k/v must share float32 or bfloat16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention: the kernel takes head dim 64, 128 or 160, not {d}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name}'s head dim must be contiguous")
-    if window is not None and window <= 0:
-        raise ValueError(f"flash_attention: window must be positive, not {window}")
-    if softcap is not None and softcap <= 0:
-        raise ValueError(f"flash_attention: softcap must be positive, not {softcap}")
-    out = torch.empty_like(q)
-    if out.stride(3) != 1:
-        out = torch.empty(q.shape, dtype=q.dtype, device=dev)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev) if return_lse else None
-    if q.dtype == torch.bfloat16:      # every bf16 head dim runs the TMA kernel
-        check_tma_layout(q=q, k=k, v=v)
-    t = k.shape[2]
-    meta = (ctypes.c_longlong * 17)(
-        b, hq, hkv, s, t,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        out.stride(0), out.stride(1), out.stride(2),
-    )
-    err = cuda.lib().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), meta,
-        _DTYPES[q.dtype], d, int(causal), int(window or 0),
-        float(softcap or 0.0), 1.0 / math.sqrt(d), dev.index, cuda.current_stream(dev.index),
-    )
-    cuda.check(err, "flash_attention")
-    cuda.count_launch("flash_attention")
+    _check_kernel_inputs(q, k, v, window, softcap)
+    args = (q, k, v, causal, int(window or 0), float(softcap or 0.0), return_lse)
+    # on the card the launch is called directly: the op's dispatch costs host time
+    out, lse = OP(*args) if dev.type == "meta" else _launch(*args)
     return (out, lse) if return_lse else out

@@ -14,6 +14,11 @@ The fused entry points (:func:`fused_replay_scan`, :func:`fused_replay_apply`,
 and the batched executor.  Their callers pad inputs to the power-of-two
 bucket ladder (``kernels/bucketing.py``), so the number of distinct launch
 shapes per op stays bounded; :func:`fused_cache_sizes` reports it.
+
+On meta tensors the three LLM entry points run the card's checks and return
+meta outputs (see each wrapper); each such call is one dispatcher op,
+``repro_torch::flash_attention``, ``repro_torch::ssm_scan_chunked`` or
+``repro_torch::rwkv6_chunked``.
 """
 
 from __future__ import annotations
@@ -36,7 +41,10 @@ from .ssm_scan import ssm_scan_chunked
 def kernel_device(device) -> torch.device:
     """Resolve the device a kernel-mode entry point runs on.  A CUDA device
     on a machine without one raises: kernel mode never quietly runs on the
-    CPU — the caller asks for it with ``device="cpu"``."""
+    CPU — the caller asks for it with ``device="cpu"``.  ``"meta"``, named by
+    the caller, is the card's program with shapes only: the LLM kernel
+    wrappers run their card checks and return meta outputs (the dry run's
+    device); the OLTP kernels refuse it."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -44,7 +52,7 @@ def kernel_device(device) -> torch.device:
                 "kernel mode needs a CUDA device and none is available; "
                 "pass device='cpu' to run the plain PyTorch versions"
             )
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported kernel device {dev}")
     return dev
 

@@ -28,7 +28,11 @@ dim), a chunk-parallel scan in three device launches over state chunks of
 decay, one pass over the state chunks for the state entering each, then
 the outputs) through one float32 scratch of ``B·H·nc·(K·V + K)`` elements
 for ``nc = ceil(S / 128)``; on a CPU tensor it runs
-:func:`rwkv6_chunked_plain`.
+:func:`rwkv6_chunked_plain`.  On a meta tensor it runs the card's checks and
+returns meta outputs, launching nothing: one dispatcher op,
+``repro_torch::rwkv6_chunked`` (:data:`OP`; on the card the wrapper calls
+its launch directly, as the flash wrapper does); :func:`op_cost` gives its
+flops and bytes.
 """
 
 from __future__ import annotations
@@ -92,6 +96,85 @@ def rwkv6_chunked_plain(
     return y.to(v.dtype), state
 
 
+def _check_kernel_inputs(r, k, v, w, u) -> None:
+    """What the kernel takes, checked alike on the card and on meta."""
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6: r/k/v must share float32 or bfloat16, got "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}")
+    if w.dtype != torch.float32 or u.dtype != torch.float32:
+        raise TypeError("rwkv6: w and u must be float32")
+    kd, vd = r.shape[-1], v.shape[-1]
+    if not (1 <= kd <= KERNEL_MAX_DIM and 1 <= vd <= KERNEL_MAX_DIM):
+        raise ValueError(f"rwkv6: the kernel takes K and V in [1, {KERNEL_MAX_DIM}], "
+                         f"not K={kd}, V={vd}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"rwkv6: {name}'s last dim must be contiguous")
+
+
+def _outputs(r, k, v, w, u):
+    """y in v's layout and the float32 final state (the op's Meta kernel)."""
+    b, h, _, kd = r.shape
+    y = torch.empty_like(v)
+    if y.stride(-1) != 1:
+        y = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    return y, torch.empty((b, h, kd, v.shape[-1]), dtype=torch.float32, device=v.device)
+
+
+def _launch(r, k, v, w, u):
+    """Three launches on checked inputs (``u`` contiguous)."""
+    y, state = _outputs(r, k, v, w, u)
+    b, h, s, kd = r.shape
+    vd = v.shape[-1]
+    dev = r.device
+    # per state chunk: its state contribution, then the state entering it; its decay
+    nc = -(-s // STATE_CHUNK)
+    scratch = r.new_empty(b * h * nc * (kd * vd + kd), dtype=torch.float32)
+    meta = (ctypes.c_longlong * 20)(
+        b, h, s, kd, vd,
+        r.stride(0), r.stride(1), r.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        w.stride(0), w.stride(1), w.stride(2),
+        y.stride(0), y.stride(1), y.stride(2),
+    )
+    err = cuda.lib().repro_rwkv6_chunked(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        y.data_ptr(), state.data_ptr(), scratch.data_ptr(), meta, _DTYPES[r.dtype], dev.index,
+        cuda.current_stream(dev.index),
+    )
+    cuda.check(err, "rwkv6_chunked")
+    cuda.count_launch("rwkv6_chunked")
+    return y, state
+
+
+OP = cuda.define_op(
+    "rwkv6_chunked",
+    "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u) -> (Tensor, Tensor)",
+    _outputs)
+
+
+def block_flops(b: int, h: int, s: int, kd: int, vd: int, c: int = CHUNK) -> int:
+    """The block form's flops at chunk c: per chunk and head, the state
+    term and the state update (2cKV each), A's lower triangle (4 per pair
+    and channel: the exponent's difference, two products, the sum; the exp
+    aside) and diagonal (3 per channel), and A v over s <= t; chunks
+    counted as s / c, the steps this input has."""
+    per_chunk = 4 * c * kd * vd + 2 * c * (c - 1) * kd + 3 * c * kd + c * (c + 1) * vd
+    return int(b * h * per_chunk * s / c)
+
+
+def op_cost(r, k, v, w, u) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one kernel call: :func:`block_flops`, and r,
+    k, v, w and u read once, y and the state written once."""
+    b, h, s, kd = r.shape
+    vd = v.shape[-1]
+    esz = r.element_size()
+    nbytes = (esz * b * h * s * (2 * kd + 2 * vd) + 4 * b * h * s * kd + 4 * h * kd
+              + 4 * b * h * kd * vd)
+    return block_flops(b, h, s, kd, vd), nbytes
+
+
 def rwkv6_chunked(
     r: torch.Tensor,       # (B, H, S, K)
     k: torch.Tensor,       # (B, H, S, K)
@@ -113,40 +196,7 @@ def rwkv6_chunked(
         raise ValueError("rwkv6: inputs on different devices")
     if dev.type == "cpu":
         return rwkv6_chunked_plain(r, k, v, w, u)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"rwkv6: unsupported device {dev}")
-    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
-        raise TypeError(f"rwkv6: r/k/v must share float32 or bfloat16, got "
-                        f"{r.dtype}, {k.dtype}, {v.dtype}")
-    if w.dtype != torch.float32 or u.dtype != torch.float32:
-        raise TypeError("rwkv6: w and u must be float32")
-    if not (1 <= kd <= KERNEL_MAX_DIM and 1 <= vd <= KERNEL_MAX_DIM):
-        raise ValueError(f"rwkv6: the kernel takes K and V in [1, {KERNEL_MAX_DIM}], "
-                         f"not K={kd}, V={vd}")
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"rwkv6: {name}'s last dim must be contiguous")
-    u = u.contiguous()
-    y = torch.empty_like(v)
-    if y.stride(-1) != 1:
-        y = torch.empty(v.shape, dtype=v.dtype, device=dev)
-    state = torch.empty((b, h, kd, vd), dtype=torch.float32, device=dev)
-    # per state chunk: its state contribution, then the state entering it; its decay
-    nc = -(-s // STATE_CHUNK)
-    scratch = r.new_empty(b * h * nc * (kd * vd + kd), dtype=torch.float32)
-    meta = (ctypes.c_longlong * 20)(
-        b, h, s, kd, vd,
-        r.stride(0), r.stride(1), r.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        w.stride(0), w.stride(1), w.stride(2),
-        y.stride(0), y.stride(1), y.stride(2),
-    )
-    err = cuda.lib().repro_rwkv6_chunked(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        y.data_ptr(), state.data_ptr(), scratch.data_ptr(), meta, _DTYPES[r.dtype], dev.index,
-        cuda.current_stream(dev.index),
-    )
-    cuda.check(err, "rwkv6_chunked")
-    cuda.count_launch("rwkv6_chunked")
-    return y, state
+    _check_kernel_inputs(r, k, v, w, u)
+    return (OP if dev.type == "meta" else _launch)(r, k, v, w, u.contiguous())

@@ -22,7 +22,11 @@ type, dt and decay float32, any strides with a contiguous last dim), a
 chunk-parallel scan in three device launches (chunk states, one pass over
 the chunks for the state, then the outputs) through one float32 scratch of
 ``B·H·nc·(P·N + 1)`` elements for ``nc = ceil(S / 64)`` chunks; on a CPU
-tensor it runs :func:`ssm_scan_chunked_plain`.
+tensor it runs :func:`ssm_scan_chunked_plain`.  On a meta tensor it runs the
+card's checks and returns meta outputs, launching nothing: one dispatcher
+op, ``repro_torch::ssm_scan_chunked`` (:data:`OP`; on the card the wrapper
+calls its launch directly, as the flash wrapper does); :func:`op_cost` gives
+its flops and bytes.
 """
 
 from __future__ import annotations
@@ -88,6 +92,76 @@ def ssm_scan_chunked_plain(
     return y.to(x.dtype), state
 
 
+def _check_kernel_inputs(x, dt, decay, bmat, cmat) -> None:
+    """What the kernel takes, checked alike on the card and on meta."""
+    if x.dtype not in _DTYPES or bmat.dtype != x.dtype or cmat.dtype != x.dtype:
+        raise TypeError(f"ssm_scan: x/B/C must share float32 or bfloat16, got "
+                        f"{x.dtype}, {bmat.dtype}, {cmat.dtype}")
+    if dt.dtype != torch.float32 or decay.dtype != torch.float32:
+        raise TypeError("ssm_scan: dt and decay must be float32")
+    n = bmat.shape[-1]
+    if not 1 <= n <= KERNEL_MAX_N:
+        raise ValueError(f"ssm_scan: the kernel takes N in [1, {KERNEL_MAX_N}], not {n}")
+    for name, t in (("x", x), ("B", bmat), ("C", cmat)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssm_scan: {name}'s last dim must be contiguous")
+
+
+def _outputs(x, dt, decay, bmat, cmat):
+    """y in x's layout and the float32 final state (the op's Meta kernel)."""
+    b, h, _, p = x.shape
+    y = torch.empty_like(x)
+    if y.stride(-1) != 1:
+        y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    return y, torch.empty((b, h, p, bmat.shape[-1]), dtype=torch.float32, device=x.device)
+
+
+def _launch(x, dt, decay, bmat, cmat):
+    """Three launches on checked inputs."""
+    y, state = _outputs(x, dt, decay, bmat, cmat)
+    b, h, s, p = x.shape
+    n = bmat.shape[-1]
+    dev = x.device
+    # per chunk: its state contribution, then the state entering it; its decay
+    nc = -(-s // DEFAULT_CHUNK)
+    scratch = x.new_empty(b * h * nc * (p * n + 1), dtype=torch.float32)
+    meta = (ctypes.c_longlong * 21)(
+        b, h, s, p, n,
+        x.stride(0), x.stride(1), x.stride(2),
+        dt.stride(0), dt.stride(1), dt.stride(2),
+        decay.stride(0), decay.stride(1), decay.stride(2),
+        bmat.stride(0), bmat.stride(1),
+        cmat.stride(0), cmat.stride(1),
+        y.stride(0), y.stride(1), y.stride(2),
+    )
+    err = cuda.lib().repro_ssm_scan_chunked(
+        x.data_ptr(), dt.data_ptr(), decay.data_ptr(), bmat.data_ptr(),
+        cmat.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(), meta,
+        _DTYPES[x.dtype], dev.index, cuda.current_stream(dev.index),
+    )
+    cuda.check(err, "ssm_scan_chunked")
+    cuda.count_launch("ssm_scan_chunked")
+    return y, state
+
+
+OP = cuda.define_op(
+    "ssm_scan_chunked",
+    "(Tensor x, Tensor dt, Tensor decay, Tensor bmat, Tensor cmat) -> (Tensor, Tensor)",
+    _outputs)
+
+
+def op_cost(x, dt, decay, bmat, cmat) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one kernel call: 5·P·N flops per step and head
+    (the decay, the input's outer product and the add on the state, then
+    y = C·h), x, dt, decay, B and C read once, y and the state written
+    once."""
+    b, h, s, p = x.shape
+    n = bmat.shape[-1]
+    esz = x.element_size()
+    nbytes = 2 * esz * b * h * s * p + 2 * 4 * b * h * s + 2 * esz * b * s * n + 4 * b * h * p * n
+    return 5 * b * h * s * p * n, nbytes
+
+
 def ssm_scan_chunked(
     x: torch.Tensor,       # (B, H, S, P)
     dt: torch.Tensor,      # (B, H, S)
@@ -110,39 +184,7 @@ def ssm_scan_chunked(
         raise ValueError("ssm_scan: inputs on different devices")
     if dev.type == "cpu":
         return ssm_scan_chunked_plain(x, dt, decay, bmat, cmat)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"ssm_scan: unsupported device {dev}")
-    if x.dtype not in _DTYPES or bmat.dtype != x.dtype or cmat.dtype != x.dtype:
-        raise TypeError(f"ssm_scan: x/B/C must share float32 or bfloat16, got "
-                        f"{x.dtype}, {bmat.dtype}, {cmat.dtype}")
-    if dt.dtype != torch.float32 or decay.dtype != torch.float32:
-        raise TypeError("ssm_scan: dt and decay must be float32")
-    if not 1 <= n <= KERNEL_MAX_N:
-        raise ValueError(f"ssm_scan: the kernel takes N in [1, {KERNEL_MAX_N}], not {n}")
-    for name, t in (("x", x), ("B", bmat), ("C", cmat)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"ssm_scan: {name}'s last dim must be contiguous")
-    y = torch.empty_like(x)
-    if y.stride(-1) != 1:
-        y = torch.empty(x.shape, dtype=x.dtype, device=dev)
-    state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    # per chunk: its state contribution, then the state entering it; its decay
-    nc = -(-s // DEFAULT_CHUNK)
-    scratch = x.new_empty(b * h * nc * (p * n + 1), dtype=torch.float32)
-    meta = (ctypes.c_longlong * 21)(
-        b, h, s, p, n,
-        x.stride(0), x.stride(1), x.stride(2),
-        dt.stride(0), dt.stride(1), dt.stride(2),
-        decay.stride(0), decay.stride(1), decay.stride(2),
-        bmat.stride(0), bmat.stride(1),
-        cmat.stride(0), cmat.stride(1),
-        y.stride(0), y.stride(1), y.stride(2),
-    )
-    err = cuda.lib().repro_ssm_scan_chunked(
-        x.data_ptr(), dt.data_ptr(), decay.data_ptr(), bmat.data_ptr(),
-        cmat.data_ptr(), y.data_ptr(), state.data_ptr(), scratch.data_ptr(), meta,
-        _DTYPES[x.dtype], dev.index, cuda.current_stream(dev.index),
-    )
-    cuda.check(err, "ssm_scan_chunked")
-    cuda.count_launch("ssm_scan_chunked")
-    return y, state
+    _check_kernel_inputs(x, dt, decay, bmat, cmat)
+    return (OP if dev.type == "meta" else _launch)(x, dt, decay, bmat, cmat)

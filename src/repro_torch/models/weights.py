@@ -122,3 +122,30 @@ def to_reference(model: Model, device=None, release: bool = False) -> Dict[str, 
         else:                 # ("groups", g): the g-th entry of a list
             tree.setdefault(key[0], []).append(stacked)
     return tree
+
+
+def reference_views(model: Model, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`to_reference` without a copy: each of the
+    model's parameter names (``model.lm.named_parameters()``) mapped to its
+    value in ``tree``, a stacked leaf's layer as a view (``leaf[i]``).  With
+    ``torch.func.functional_call`` the model then runs on the tree's
+    weights in place of its own (the sharded serve steps' gathered
+    weights)."""
+    lm = model.lm
+    names = {id(p): n for n, p in lm.named_parameters()}
+    out: Dict[str, torch.Tensor] = {}
+    for key, blocks in lm.stacks():
+        group = tree
+        for part in key:
+            group = group[part]
+        for name, leaf in iter_leaves(group):
+            for i, blk in enumerate(blocks):
+                out[names[id(blk.get_parameter(name))]] = leaf[i]
+    top = set(names.values())
+    for name, leaf in iter_leaves(tree):
+        if name in top and name not in out:
+            out[name] = leaf
+    missing = top - set(out)
+    if missing:
+        raise ValueError(f"reference tree does not cover the port's parameters: {sorted(missing)}")
+    return out

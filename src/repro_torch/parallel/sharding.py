@@ -33,7 +33,9 @@ torch has no such compiler, so :func:`shard_train_step` does it by hand,
 FSDP-style: parameters and AdamW moments rest as DTensors at their
 placements, each step gathers the weights, runs the unsharded loss and
 gradients on the rank's batch shard, averages the gradients over the batch's
-mesh axes and updates the rank's own slice.
+mesh axes and updates the rank's own slice.  :class:`ShardedPrefill` and
+:class:`ShardedDecode` serve in the same gather-on-use form, with the
+caches at rest at their serve shardings.
 """
 
 from __future__ import annotations
@@ -48,9 +50,10 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
 from ..models.common import ParamSpec
+from ..models.weights import reference_views
 from ..optim import adamw
 from ..parallel import compression
-from ..train.step import loss_and_grads
+from ..train.step import mean_loss_and_grads
 from ..tree import tree_map
 
 Candidate = Tuple[str, ...]
@@ -201,8 +204,13 @@ def local_shard(t: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     at ``sharding``'s placements, split locally with no communication.  A
     strict slice is copied into storage of its own, so the whole tensor is
     not kept alive by it."""
-    local = distribute_tensor(t, sharding.mesh, list(sharding.placements),
-                              src_data_rank=None).to_local()
+    return _own_storage(distribute_tensor(t, sharding.mesh, list(sharding.placements),
+                                          src_data_rank=None).to_local())
+
+
+def _own_storage(local: torch.Tensor) -> torch.Tensor:
+    """``local``, copied into storage of its own if it is a strict slice of
+    a larger tensor's."""
     return local.clone() if local.untyped_storage().nbytes() > local.nbytes else local
 
 
@@ -211,6 +219,127 @@ def distribute_tree(tree, shardings):
     every rank holds alike (made from one seed, or loaded by every rank)."""
     return tree_map(lambda t, s: DTensor.from_local(local_shard(t, s), s.mesh, s.placements,
                                                     run_check=False), tree, shardings)
+
+
+def _local_input(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
+    """The rank's shard of a model input: a DTensor's local tensor, or the
+    rank's slice of a whole tensor that every rank holds alike."""
+    return x.to_local() if isinstance(x, DTensor) else local_shard(x, sharding)
+
+
+def _gather(params):
+    """Every weight whole on this rank (``full_tensor()``)."""
+    return tree_map(lambda p: p.full_tensor(), params)
+
+
+def _batch_entry(sharding: NamedSharding):
+    """The mesh axes a batch input's leading dim is split over (its spec's
+    first entry), or None."""
+    return sharding.spec[0] if sharding.spec else None
+
+
+def _batch_only(spec: ParamSpec, batch_entry, mesh) -> Tuple[Placement, ...]:
+    """Placements of a leaf of ``spec`` that this rank holds for its batch
+    rows only: split over the batch's mesh axes at its "batch" dim, whole
+    along every other."""
+    d = list(spec.logical).index("batch")
+    return to_placements((None,) * d + (batch_entry,), mesh)
+
+
+class _Serve:
+    """What the gather-on-use serve steps share: the parameter shardings,
+    the cache specs and shardings at ``cache_len`` per global batch, and
+    the model run on a reference tree."""
+
+    def __init__(self, model, mesh: DeviceMesh, cache_len: int, policy: str = "serve"):
+        self.model, self.mesh, self.cache_len, self.policy = model, mesh, cache_len, policy
+        self.param_shardings = tree_shardings(model.param_specs(), mesh, policy)
+
+    def cache_specs(self, batch: int):
+        return self.model.cache_specs(batch, self.cache_len)
+
+    def cache_shardings(self, batch: int):
+        return tree_shardings(self.cache_specs(batch), self.mesh, self.policy)
+
+    def _run(self, method: str, full, *args):
+        """``model.lm.<method>(*args)`` on the whole weights ``full`` (a
+        reference tree; views, no copy) in place of the model's own."""
+        views = {f"lm.{k}": v for k, v in reference_views(self.model, full).items()}
+        return torch.func.functional_call(_Method(self.model.lm, method), views, args)
+
+    def _keep_local(self, caches, batch: int, batch_entry):
+        """The rank's shards of ``caches`` (each whole but for its batch
+        rows) at their cache shardings, in storage of their own."""
+        def one(t, spec, sh):
+            d = DTensor.from_local(t, self.mesh, _batch_only(spec, batch_entry, self.mesh),
+                                   run_check=False)
+            return _own_storage(d.redistribute(self.mesh, sh.placements).to_local())
+        return tree_map(one, caches, self.cache_specs(batch), self.cache_shardings(batch))
+
+
+class _Method(torch.nn.Module):
+    """Calls ``lm.<name>``, so that ``functional_call`` can run it."""
+
+    def __init__(self, lm, name: str):
+        super().__init__()
+        self.lm, self.name = lm, name
+
+    def forward(self, *args):
+        return getattr(self.lm, self.name)(*args)
+
+
+class ShardedPrefill(_Serve):
+    """``prefill(params, batch) -> (last_logits, caches)`` over DTensor
+    trees, the counterpart of the reference's ``jax.jit(model.prefill,
+    in_shardings=(param_sh, batch_sh), out_shardings=(rep, cache_sh))``, in
+    the gather-on-use form of :class:`ShardedTrainStep`.
+
+    ``params`` is a DTensor tree at :attr:`param_shardings` (the serve
+    policy's); ``batch`` holds the model's inputs, DTensors at
+    :func:`batch_shardings` or whole tensors every rank holds alike.  Each
+    call gathers every weight, runs the model's prefill on the rank's batch
+    shard (every rank of a batch group computes the same thing), and keeps
+    the new caches at :meth:`cache_shardings`' local shards.  The logits
+    are the rank's batch rows.  The model's own parameters are not read: a
+    model built on meta, or one whose weights were handed over
+    (``to_reference(release=True)``), serves."""
+
+    def __call__(self, params, batch: Dict[str, torch.Tensor]):
+        shardings = batch_shardings(batch, self.mesh, self.policy)
+        local = {k: _local_input(v, shardings[k]) for k, v in batch.items()}
+        full = _gather(params)
+        logits, caches = self._run("prefill", full, local, self.cache_len)
+        del full
+        return logits, self._keep_local(caches, batch["tokens"].shape[0],
+                                        _batch_entry(shardings["tokens"]))
+
+
+class ShardedDecode(_Serve):
+    """``decode(params, caches, tokens, pos) -> (logits, caches)`` over
+    DTensor trees, the counterpart of the reference's serve step
+    ``jax.jit(model.decode_step, in_shardings=(param_sh, cache_sh,
+    batch_sh), out_shardings=(rep, cache_sh), donate_argnums=(1,))``.
+
+    ``params`` and ``caches`` are DTensor trees at :attr:`param_shardings`
+    and :meth:`cache_shardings`; ``tokens`` (B, 1) a DTensor at its batch
+    sharding or a whole tensor; ``pos`` the absolute position, a Python int
+    (as ``Model.decode_step`` takes it).  Each call gathers every weight and
+    each cache leaf's other axes for the rank's batch rows, runs the
+    model's decode step on them, and returns the updated caches at their
+    shardings' local shards.  A cache leaf split over the batch's axes alone
+    is not copied, and is updated in place: the caller's old caches are
+    spent, as the reference's donated ones are."""
+
+    def __call__(self, params, caches, tokens: torch.Tensor, pos: int):
+        shard = batch_shardings({"tokens": tokens}, self.mesh, self.policy)["tokens"]
+        entry = _batch_entry(shard)
+        b = tokens.shape[0]
+        whole = tree_map(lambda c, spec: c.redistribute(
+            self.mesh, _batch_only(spec, entry, self.mesh)).to_local(), caches, self.cache_specs(b))
+        full = _gather(params)
+        logits, whole = self._run("decode_step", full, whole, _local_input(tokens, shard), pos)
+        del full
+        return logits, self._keep_local(whole, b, entry)
 
 
 class ShardedTrainStep:
@@ -222,18 +351,21 @@ class ShardedTrainStep:
     :attr:`param_shardings` and :attr:`opt_shardings` (make them with
     :func:`distribute_tree`); each rank holds only its slices between steps.
     ``batch`` is a dict of whole tensors, the same on every rank (what every
-    rank's data pipeline yields); the step keeps the rank's shard of it at
-    :func:`batch_shardings`.  Each step:
+    rank's data pipeline yields), or of DTensors at :func:`batch_shardings`;
+    the step computes on the rank's shard of it.  Each step:
 
     1. gathers every weight (``full_tensor()``) and runs the unsharded
        :func:`~repro_torch.train.step.loss_and_grads` on the batch shard, so
-       the kernels see plain tensors only;
+       the kernels see plain tensors only; with ``accum_steps`` > 1, on that
+       many microbatches of the shard, their gradients summed in float32
+       (:func:`~repro_torch.train.step.mean_loss_and_grads`);
     2. averages the loss and the gradients over the mesh axes the batch is
        split over, each shard weighted by its share of the batch's labelled
        tokens (the loss is a mean over them; llava's patches are masked out
        of every row alike, so a shard's count is its labels' size), in
        float32 on one process group (one all-reduce per leaf, so every rank
-       holds the same bits);
+       holds the same bits); with ``accum_steps`` > 1 the average is then
+       cast to bfloat16, as the reference casts the microbatches' mean;
     3. with ``compress_grads``, applies ``fake_quantize`` to the averaged
        gradient, as the reference's step does;
     4. runs ``adamw.update`` on each rank's plain local slices, given the
@@ -245,9 +377,9 @@ class ShardedTrainStep:
     """
 
     def __init__(self, model, opt_cfg: adamw.AdamWConfig, mesh: DeviceMesh,
-                 policy: str = "train", compress_grads: bool = False):
+                 policy: str = "train", compress_grads: bool = False, accum_steps: int = 1):
         self.model, self.opt_cfg, self.mesh, self.policy = model, opt_cfg, mesh, policy
-        self.compress_grads = compress_grads
+        self.compress_grads, self.accum_steps = compress_grads, accum_steps
         specs = model.param_specs()
         self.param_shardings = tree_shardings(specs, mesh, policy)
         self.opt_shardings = tree_shardings(adamw.opt_state_specs(specs, opt_cfg), mesh, policy)
@@ -268,11 +400,11 @@ class ShardedTrainStep:
 
     def __call__(self, params, opt_state, batch: Dict[str, torch.Tensor]):
         shardings = batch_shardings(batch, self.mesh, self.policy)
-        local_batch = {k: local_shard(v, shardings[k]) for k, v in batch.items()}
-        axes = _axes_of(shardings["labels"].spec[0] if shardings["labels"].spec else None)
+        local_batch = {k: _local_input(v, shardings[k]) for k, v in batch.items()}
+        axes = _axes_of(_batch_entry(shardings["labels"]))
 
-        full = tree_map(lambda p: p.full_tensor(), params)
-        loss, grads = loss_and_grads(self.model, full, local_batch)
+        full = _gather(params)
+        loss, grads = mean_loss_and_grads(self.model, full, local_batch, self.accum_steps)
         del full
         if axes:
             group = self._group(axes)
@@ -285,6 +417,8 @@ class ShardedTrainStep:
 
             grads = tree_map(_mean, grads)
             loss = _mean(loss)
+        if self.accum_steps > 1:
+            grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
         if self.compress_grads:
             grads = compression.fake_quantize_tree(grads)
         grad_norm = adamw.global_norm(grads)
@@ -301,8 +435,8 @@ class ShardedTrainStep:
 
 
 def shard_train_step(model, opt_cfg: adamw.AdamWConfig, mesh: DeviceMesh, policy: str = "train",
-                     compress_grads: bool = False) -> ShardedTrainStep:
-    """The train step of ``make_train_step(model, opt_cfg,
-    compress_grads=compress_grads)`` sharded over ``mesh`` by ``policy``'s
-    rules (see :class:`ShardedTrainStep`)."""
-    return ShardedTrainStep(model, opt_cfg, mesh, policy, compress_grads)
+                     compress_grads: bool = False, accum_steps: int = 1) -> ShardedTrainStep:
+    """The train step of ``make_train_step(model, opt_cfg, accum_steps,
+    compress_grads)`` sharded over ``mesh`` by ``policy``'s rules (see
+    :class:`ShardedTrainStep`)."""
+    return ShardedTrainStep(model, opt_cfg, mesh, policy, compress_grads, accum_steps)

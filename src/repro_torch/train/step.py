@@ -35,6 +35,31 @@ def loss_and_grads(model: Model, params, batch: Dict[str, torch.Tensor]):
     return loss.detach(), tree_unflatten_like(params, list(grads))
 
 
+def mean_loss_and_grads(model: Model, params, batch: Dict[str, torch.Tensor],
+                        accum_steps: int = 1):
+    """:func:`loss_and_grads` of ``batch``, or with ``accum_steps`` > 1 the
+    mean over that many microbatches (each leading-batch leaf split into
+    equal parts, in order) of their losses and gradients, summed in float32:
+    a float32 loss and float32 gradients."""
+    if accum_steps == 1:
+        return loss_and_grads(model, params, batch)
+
+    def _split(x):
+        b = x.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"a batch of {b} rows does not split into {accum_steps} microbatches")
+        return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])
+
+    micro = {k: _split(v) for k, v in batch.items()}
+    gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+    for i in range(accum_steps):
+        loss, grads = loss_and_grads(model, params, {k: v[i] for k, v in micro.items()})
+        gsum = tree_map(lambda a, g: a + g.float(), gsum, grads)
+        loss_sum = loss_sum + loss
+    return loss_sum / accum_steps, tree_map(lambda g: g / accum_steps, gsum)
+
+
 def make_train_step(
     model: Model,
     opt_cfg: adamw.AdamWConfig,
@@ -42,25 +67,9 @@ def make_train_step(
     compress_grads: bool = False,
 ):
     def step(params, opt_state, batch: Dict[str, torch.Tensor]):
-        if accum_steps == 1:
-            loss, grads = loss_and_grads(model, params, batch)
-        else:
-            # split every leading-batch leaf into accum_steps microbatches
-            def _split(x):
-                b = x.shape[0]
-                assert b % accum_steps == 0, (b, accum_steps)
-                return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])
-
-            micro = {k: _split(v) for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                            params)
-            loss_sum = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-            for i in range(accum_steps):
-                loss, grads = loss_and_grads(model, params, {k: v[i] for k, v in micro.items()})
-                gsum = tree_map(lambda a, g: a + g.float(), gsum, grads)
-                loss_sum = loss_sum + loss
-            grads = tree_map(lambda g: (g / accum_steps).to(torch.bfloat16), gsum)
-            loss = loss_sum / accum_steps
+        loss, grads = mean_loss_and_grads(model, params, batch, accum_steps)
+        if accum_steps > 1:      # the reference casts the microbatches' mean
+            grads = tree_map(lambda g: g.to(torch.bfloat16), grads)
 
         if compress_grads:
             grads = compression.fake_quantize_tree(grads)
