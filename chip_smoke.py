@@ -259,6 +259,7 @@ from repro_torch.serve import (
 )
 from repro_torch.shard import ShardedConfig, ShardedEngine, recover_sharded
 from repro_torch import trace as ttrace
+from bench import readers, tracing
 from repro_torch.trace import span as tspan
 
 # NVIDIA H100 SXM data sheet: 3.35 TB/s HBM3.  int32 ALU rate: the data
@@ -2405,19 +2406,28 @@ def run_serve_path(run: ServeRun, seed: int, smi: str):
     return out, model
 
 
+def _by_name(trace) -> dict:
+    """Device ms and launches by name of a ``bench/tracing.py`` trace's
+    first pass (device activity alone)."""
+    rows = {}
+    for e in trace.device:
+        ms, n = rows.get(e.name, (0.0, 0))
+        rows[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return rows
+
+
 def profile_serve(model, batch, cache_len: int, steps: int = 8):
-    """One more prefill and ``steps`` decode steps under the CUDA profiler
-    (not counted): prefill device ms by kernel group and its flash launches
-    by kernel name, and per decode step
-    the device ms against the host clock (the card's busy share)."""
-    caches = []
+    """One more prefill and ``steps`` decode steps, each run twice under
+    ``bench/tracing.py``'s passes (not counted): prefill device ms by kernel
+    group and its flash launches by kernel name, and per decode step the
+    device ms against the host clock (the card's busy share)."""
+    kept = {}
 
     def _prefill():
-        logits, c = model.prefill(batch, cache_len)
-        caches.append(c)
-        return logits
+        kept["logits"], kept["caches"] = model.prefill(batch, cache_len)
+        return [{}]
 
-    logits, rows = _device_ms(_prefill)
+    rows = _by_name(tracing.profile_units(_prefill, (), None))
     flash = _flash_kernels(rows)
     groups = {"flash_attention": 0.0, "ssm_scan_chunked": 0.0, "rwkv6_chunked": 0.0,
               "gemm": 0.0, "copies": 0.0, "other": 0.0}
@@ -2436,17 +2446,17 @@ def profile_serve(model, batch, cache_len: int, steps: int = 8):
         else:
             groups["other"] += ms
     top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    tok = torch.argmax(kept["logits"], dim=-1).to(torch.int32)
     s = _prefix(model.cfg) + batch["tokens"].shape[1]
 
     def _decode():
         for i in range(steps):
-            out, _ = model.decode_step(caches[0], tok, s + i)
-        return out
+            model.decode_step(kept["caches"], tok, s + i)
+        return [{}]
 
-    t0 = time.perf_counter()
-    _, drows = _device_ms(_decode)
-    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    dec = tracing.profile_units(_decode, (), None)
+    drows = _by_name(dec)
+    host_ms = dec.window_s * 1e3 / steps
     dev_ms = sum(ms for ms, _ in drows.values()) / steps
     return dict(prefill_device_ms=groups, prefill_total_ms=sum(groups.values()),
                 prefill_flash_kernels=flash,
@@ -2763,89 +2773,50 @@ def run_grad_oracle(cfg, run: TrainRun, seed: int, dev) -> dict:
     return out
 
 
-# the torch-op backwards and the optimizer, each timed in its own profiler
-# range: (device-ms group, range, module, function)
-_ANNOTATED = (("attention_backward", "train.attn_bwd", attention_mod, "_flash_bwd"),
-              ("ssm_backward", "train.ssm_bwd", ssm_mod, "_chunked_scan_grad"),
-              ("wkv_backward", "train.wkv_bwd", rwkv_mod, "_chunked_wkv_grad"),
-              ("optimizer", "train.optimizer", adamw, "update"))
-
-
-class _Annotated:
-    """Wrap the torch-op backwards and the optimizer update in profiler
-    ranges for one profiled step, and put them back after."""
-
-    def __enter__(self):
-        from torch.profiler import record_function
-
-        self._saved = [getattr(mod, attr) for _, _, mod, attr in _ANNOTATED]
-
-        def ranged(tag, fn):
-            def wrapped(*a, **kw):
-                with record_function(tag):
-                    return fn(*a, **kw)
-            return wrapped
-
-        for (_, tag, mod, attr), fn in zip(_ANNOTATED, self._saved):
-            setattr(mod, attr, ranged(tag, fn))
-        return self
-
-    def __exit__(self, *exc):
-        for (_, _, mod, attr), fn in zip(_ANNOTATED, self._saved):
-            setattr(mod, attr, fn)
-
-
-def _kernels_under(events, name):
-    """Device kernels launched inside every profiler range ``name``."""
-    out = []
-
-    def walk(e):
-        out.extend(e.kernels)
-        for ch in e.cpu_children:
-            walk(ch)
-
-    for e in events:
-        if e.name == name:
-            walk(e)
-    return out
+# the torch-op backwards and the optimizer, each in a profiler range of
+# ``bench/tracing.py``: (device-ms group, range)
+_ANNOTATED = (("attention_backward", readers.ATTN_BWD),
+              ("ssm_backward", ("bench.ssm_bwd", ssm_mod.__name__, "_chunked_scan_grad", None)),
+              ("wkv_backward", ("bench.wkv_bwd", rwkv_mod.__name__, "_chunked_wkv_grad", None)),
+              ("optimizer", readers.OPTIMIZER))
 
 
 def profile_train_step(step_fn, params, opt, batch) -> dict:
-    """One train step under the CUDA profiler: device ms by group (the
-    three kernels' forwards, the torch-op backwards of attention, the scan
-    and wkv6, GEMMs outside them, the optimizer, the rest) and the card's
-    busy share of the step."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One train step, run twice under ``bench/tracing.py``'s passes: device
+    ms by group (the three kernels' forwards, the torch-op backwards of
+    attention, the scan and wkv6, GEMMs outside them, the optimizer, the
+    rest) and the card's busy share of the first pass's step."""
+    gemm = re.compile("gemm|nvjet|cutlass|gemv", re.IGNORECASE)
+    def step():
+        step_fn(params, opt, batch)
+        return [{}]
 
-    gemm = lambda n: any(tag in n.lower() for tag in ("gemm", "nvjet", "cutlass", "gemv"))
-    torch.cuda.synchronize()
-    with _Annotated(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = step_fn(params, opt, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.events()
-    # the ranges' own spans on the device timeline are not work: leave them out
-    device = [e for e in events if e.device_type == DeviceType.CUDA and not e.name.startswith("train.")]
-    ms = lambda pick: sum(e.time_range.elapsed_us() for e in device if pick(e.name)) / 1e3
+    tr = tracing.profile_units(step, [rng for _, rng in _ANNOTATED], None)
+    rows = _by_name(tr)
+    ms = lambda pick: sum(v for n, (v, _) in rows.items() if pick(n))
     total = ms(lambda n: True)
     groups = {"flash_forward": ms(lambda n: "flash_fwd" in n),
               "ssm_forward": ms(lambda n: "ssm_chunked" in n),
               "wkv_forward": ms(lambda n: "rwkv6_chunked" in n)}
-    gemm_in = 0.0
-    for group, tag, _, _ in _ANNOTATED:
-        under = _kernels_under(events, tag)
-        groups[group] = sum(k.duration for k in under) / 1e3
-        gemm_in += sum(k.duration for k in under if gemm(k.name)) / 1e3
-    groups["gemm"] = ms(gemm) - gemm_in
+    for group, rng in _ANNOTATED:
+        groups[group] = 1e3 * (tr.device_s_under(rng[0]) or 0.0)
+    tags = {rng[0] for _, rng in _ANNOTATED}
+
+    def ranged(e):
+        while e is not None and e.name not in tags:
+            e = e.cpu_parent
+        return e is not None
+
+    gemm_in = sum(k.duration for e in tr.host if ranged(e) for k in e.kernels
+                  if gemm.search(k.name)) / 1e3
+    groups["gemm"] = ms(gemm.search) - gemm_in
     groups["other"] = total - sum(groups.values())
-    agg = {}
-    for e in device:
-        agg[e.name[:90]] = agg.get(e.name[:90], 0.0) + e.time_range.elapsed_us() / 1e3
-    return out, dict(device_ms=groups, device_total_ms=total, wall_ms=wall * 1e3,
-                     busy=total / (wall * 1e3), backward_gemm_ms=gemm_in,
-                     top=sorted(agg.items(), key=lambda kv: -kv[1])[:8])
+    wall = tr.window_s * 1e3
+    top = {}
+    for name, (v, _) in rows.items():
+        top[name[:90]] = top.get(name[:90], 0.0) + v
+    return dict(device_ms=groups, device_total_ms=total, wall_ms=wall, busy=total / wall,
+                backward_gemm_ms=gemm_in, top=sorted(top.items(), key=lambda kv: -kv[1])[:8])
 
 
 def _journal_sizing(cfg, workdir) -> tuple:
@@ -2892,10 +2863,14 @@ def _check_step_launches(launched, run: TrainRun, cfg, what: str):
 def _train_flops(cfg, params, b: int, s: int):
     """The model flops of one step and their formula: 6 N per token for the
     weights a token passes through (a MoE's top k of its experts; an
-    encoder's N_enc weights pass its F frames, not the S tokens), plus 12 Hq
-    D per unmasked attention pair and row (the decoder's causal or windowed
-    pairs, an encoder's F^2 and the cross-attention's S F)."""
+    encoder's N_enc weights pass its F frames, not the S tokens; the input
+    embedding, a lookup, only where the head shares it, as
+    ``bench/yardstick.py`` counts), plus 12 Hq D per unmasked attention pair
+    and row (the decoder's causal or windowed pairs, an encoder's F^2 and the
+    cross-attention's S F)."""
     n = sum(p.numel() for p in tree_leaves(params))
+    if not cfg.tie_embeddings:
+        n -= params["embed"].numel()
     if cfg.moe is not None:
         n -= cfg.n_layers * (cfg.moe.n_experts - cfg.moe.top_k) * 3 * cfg.d_model * cfg.d_ff
     n_enc = sum(p.numel() for p in tree_leaves(params["enc"])) if cfg.enc_dec is not None else 0
@@ -3033,7 +3008,7 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
                 journal[step] = row
                 print(f"train_path {cfg.name} save {step}: {row} | {smi}", flush=True)
         out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        n_steps = run.steps + 1                  # run A and the profiled step
+        n_steps = run.steps + 2                  # run A and the profiled step's two passes
         if run.journal:
             final_a = _digests({"params": params, "opt": opt})
             lane_bytes = sum(os.path.getsize(os.path.join(jdir, f)) for f in os.listdir(jdir)
@@ -3085,7 +3060,7 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
                        resumed_losses=losses_b, journal=journal)
 
         # (e) one profiled step
-        _, prof = profile_train_step(step_fn, params, opt, _train_batch(pipe, dev, cfg, rng))
+        prof = profile_train_step(step_fn, params, opt, _train_batch(pipe, dev, cfg, rng))
         launches = dict(kcuda.LAUNCHES)
         want = {k: 2 * oracle_per[k] + 2 * _per_forward(cfg, k) * n_steps if k in run.kernels else 0
                 for k in launches}

@@ -11,6 +11,14 @@ convention).  The reference computes the MoE outside any Pallas kernel;
 the port's is plain torch einsums and matmuls in the reference's order and
 dtypes (router logits, probabilities and gates in float32, the SiLU in
 float32, the products in the activations' dtype).
+
+With the tracer on, a call opens a ``moe_route`` span and two
+``moe_dispatch`` spans (building the dispatch and combine tensors with the
+gather product; the scatter product), the expert GEMMs between them, and
+adds its routed and dropped (token, slot) pairs to the registry's
+``llm.moe.slots_routed.<phase>`` and ``llm.moe.slots_dropped.<phase>``,
+``<phase>`` the outermost span around it (``prefill``, ``decode_step``,
+``forward``).
 """
 
 from __future__ import annotations
@@ -22,6 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..obs.metrics import REGISTRY
+from ..trace.span import ST_MOE_DISPATCH, ST_MOE_ROUTE, TRACER
 from .common import ParamSpec, dense_spec
 
 
@@ -121,24 +131,32 @@ def moe_fwd(
     n_groups = (tokens + pad) // g
     xg = flat.reshape(n_groups, g, d)
     valid = (torch.arange(tokens + pad, device=x.device) < tokens).reshape(n_groups, g)
-    r = moe_route(p.router, xg, valid, n_experts=n_experts, top_k=top_k,
-                  capacity_factor=capacity_factor)
+    with TRACER.span(ST_MOE_ROUTE, tokens=tokens) as span:
+        r = moe_route(p.router, xg, valid, n_experts=n_experts, top_k=top_k,
+                      capacity_factor=capacity_factor)
+    if TRACER.enabled:     # a kept slot is a routed one: the rest are dropped
+        routed = valid.sum() * top_k
+        REGISTRY.add_device(f"llm.moe.slots_routed.{span.phase}", routed)
+        REGISTRY.add_device(f"llm.moe.slots_dropped.{span.phase}", routed - r.keep.sum())
 
     # dispatch (G, g, E, C); combine: the same with the gates folded in.  A
     # dropped slot (pos >= C) has an all-zero row of the position one-hot,
     # as jax.nn.one_hot gives (F.one_hot would raise)
-    oh = F.one_hot(r.top_i, n_experts)                                 # (G, g, k, E)
-    pos_oh = (r.pos[..., None] == torch.arange(r.capacity, device=x.device)).to(x.dtype)
-    disp = torch.einsum("GskE,GskC->GsEC", oh.to(x.dtype) * r.keep[..., None].to(x.dtype), pos_oh)
-    comb = torch.einsum("GskE,GskC->GsEC",
-                        (oh.float() * (r.top_p * r.keep)[..., None]).to(x.dtype), pos_oh)
+    with TRACER.span(ST_MOE_DISPATCH, layer=span.layer, tokens=tokens):
+        oh = F.one_hot(r.top_i, n_experts)                             # (G, g, k, E)
+        pos_oh = (r.pos[..., None] == torch.arange(r.capacity, device=x.device)).to(x.dtype)
+        disp = torch.einsum("GskE,GskC->GsEC", oh.to(x.dtype) * r.keep[..., None].to(x.dtype),
+                            pos_oh)
+        comb = torch.einsum("GskE,GskC->GsEC",
+                            (oh.float() * (r.top_p * r.keep)[..., None]).to(x.dtype), pos_oh)
+        expert_in = torch.einsum("GsEC,Gsd->GECd", disp, xg)           # gather as a product
 
-    expert_in = torch.einsum("GsEC,Gsd->GECd", disp, xg)               # gather as a product
     gate = torch.einsum("GECd,Edf->GECf", expert_in, p.w_gate)
     up = torch.einsum("GECd,Edf->GECf", expert_in, p.w_up)
     h = F.silu(gate.float()).to(x.dtype) * up
     expert_out = torch.einsum("GECf,Efd->GECd", h, p.w_down)
-    out = torch.einsum("GsEC,GECd->Gsd", comb, expert_out)             # scatter as a product
+    with TRACER.span(ST_MOE_DISPATCH, layer=span.layer, tokens=tokens):
+        out = torch.einsum("GsEC,GECd->Gsd", comb, expert_out)         # scatter as a product
     out = out.reshape(tokens + pad, d)
     if pad:
         out = out[:tokens]

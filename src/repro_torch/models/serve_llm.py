@@ -6,7 +6,8 @@ ties, as ``jnp.argmax``).  The batch goes to prefill whole: a vlm's
 ``vision_embeds`` come before the prompt, so decode positions start after
 both; an encoder-decoder's ``frame_embeds`` feed its encoder.  Times are
 host clocks around work that ends in ``torch.cuda.synchronize()`` on the
-card (the reference's ``block_until_ready``).
+card (the reference's ``block_until_ready``).  With the tracer on, a call
+is one unit: a ``prefill`` span, then one ``decode_step`` span a step.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..trace.span import ST_DECODE_STEP, ST_PREFILL, TRACER
 from .api import Model
 
 
@@ -41,9 +43,11 @@ class ServeEngine:
     def generate(self, batch: Dict[str, torch.Tensor], max_new: int = 16) -> GenerationResult:
         tokens = batch["tokens"]
         b, prompt_len = tokens.shape
+        unit = TRACER.next_batch_id() if TRACER.enabled else -1
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill(batch, self.cache_len)
-        next_tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        with TRACER.span(ST_PREFILL, unit=unit, tokens=b * prompt_len):
+            logits, cache = self.model.prefill(batch, self.cache_len)
+            next_tok = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
         self._sync()
         t1 = time.perf_counter()
 
@@ -53,8 +57,9 @@ class ServeEngine:
         if self.model.cfg.vlm is not None and "vision_embeds" in batch:
             pos += batch["vision_embeds"].shape[1]
         for i in range(max_new - 1):
-            logits, cache = self.model.decode_step(cache, next_tok, pos + i)
-            next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            with TRACER.span(ST_DECODE_STEP, unit=unit, tokens=b):
+                logits, cache = self.model.decode_step(cache, next_tok, pos + i)
+                next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(next_tok)
         self._sync()
         t2 = time.perf_counter()

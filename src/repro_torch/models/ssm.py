@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssm_scan import ssm_scan_chunked
+from ..trace.span import ST_SCAN_BWD, TRACER
 from .common import ParamSpec, dense_spec
 
 SCAN_CHUNK = 64     # the reference's ssm_scan chunk
@@ -230,7 +231,8 @@ def chunk_scan_grads(form: ChunkForm, state0, chunks, shared, dy, group: int):
     decay_c * dS_{c+1}``; then every chunk's input gradients by autograd of
     its outputs and of the state leaving it, ``group`` chunks at a time,
     folded into the batch.  Returns the gradients of ``chunks`` and of
-    ``shared`` (summed over the chunks)."""
+    ``shared`` (summed over the chunks).  One ``scan_bwd`` span while
+    the tracer is on."""
     b, nc = chunks[0].shape[:2]
 
     def fold(t):                    # (B, g, ...) -> (B·g, ...)
@@ -239,37 +241,38 @@ def chunk_scan_grads(form: ChunkForm, state0, chunks, shared, dy, group: int):
     def unfold(t):
         return t.reshape(b, -1, *t.shape[1:])
 
-    with torch.no_grad():
-        states = [state0]
-        for c in range(nc - 1):
-            states.append(form.state(states[-1], *(t[:, c] for t in chunks)))
-        states = torch.stack(states, dim=1)                              # (B, nc, ...)
-    with torch.enable_grad():
-        s_leaf = states.detach().requires_grad_()
-        y_state = form.y_state(fold(s_leaf), *(fold(t) for t in chunks))
-        local = torch.autograd.grad(y_state, s_leaf, fold(dy))[0]
-    with torch.no_grad():
-        decay = unfold(form.decay(*(fold(t) for t in chunks)))
-        d_next = torch.zeros_like(states)     # chunk c: the gradient of S_{c+1}
-        acc = torch.zeros_like(states[:, 0])
-        for c in range(nc - 1, 0, -1):
-            acc = local[:, c] + decay[:, c] * acc
-            d_next[:, c - 1] = acc
-    grads = [torch.zeros_like(t) for t in chunks]
-    shared_grads = [torch.zeros_like(t) for t in shared]
-    for c0 in range(0, nc, group):
-        c1 = min(c0 + group, nc)
+    with TRACER.span(ST_SCAN_BWD, tokens=b * nc * chunks[0].shape[2]):
+        with torch.no_grad():
+            states = [state0]
+            for c in range(nc - 1):
+                states.append(form.state(states[-1], *(t[:, c] for t in chunks)))
+            states = torch.stack(states, dim=1)                          # (B, nc, ...)
         with torch.enable_grad():
-            ins = [t[:, c0:c1].detach().requires_grad_() for t in chunks]
-            sh = [t.detach().requires_grad_() for t in shared]
-            flat, st = [fold(t) for t in ins], fold(states[:, c0:c1])
-            outs = [form.y_state(st, *flat) + form.y_intra(*flat, *sh), form.state(st, *flat)]
-            got = torch.autograd.grad(outs, ins + sh,
-                                      [fold(dy[:, c0:c1]), fold(d_next[:, c0:c1])])
-        for g, piece in zip(grads, got):
-            g[:, c0:c1] = piece
-        for g, piece in zip(shared_grads, got[len(ins):]):
-            g += piece
+            s_leaf = states.detach().requires_grad_()
+            y_state = form.y_state(fold(s_leaf), *(fold(t) for t in chunks))
+            local = torch.autograd.grad(y_state, s_leaf, fold(dy))[0]
+        with torch.no_grad():
+            decay = unfold(form.decay(*(fold(t) for t in chunks)))
+            d_next = torch.zeros_like(states)     # chunk c: the gradient of S_{c+1}
+            acc = torch.zeros_like(states[:, 0])
+            for c in range(nc - 1, 0, -1):
+                acc = local[:, c] + decay[:, c] * acc
+                d_next[:, c - 1] = acc
+        grads = [torch.zeros_like(t) for t in chunks]
+        shared_grads = [torch.zeros_like(t) for t in shared]
+        for c0 in range(0, nc, group):
+            c1 = min(c0 + group, nc)
+            with torch.enable_grad():
+                ins = [t[:, c0:c1].detach().requires_grad_() for t in chunks]
+                sh = [t.detach().requires_grad_() for t in shared]
+                flat, st = [fold(t) for t in ins], fold(states[:, c0:c1])
+                outs = [form.y_state(st, *flat) + form.y_intra(*flat, *sh), form.state(st, *flat)]
+                got = torch.autograd.grad(outs, ins + sh,
+                                          [fold(dy[:, c0:c1]), fold(d_next[:, c0:c1])])
+            for g, piece in zip(grads, got):
+                g[:, c0:c1] = piece
+            for g, piece in zip(shared_grads, got[len(ins):]):
+                g += piece
     return grads, shared_grads
 
 

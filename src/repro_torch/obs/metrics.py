@@ -161,12 +161,36 @@ class Registry:
         self.gauges: Dict[str, float] = {}
         self.sketches: Dict[str, QuantileSketch] = {}
         self._callbacks: Dict[str, Callable[[], float]] = {}
+        self._device: Dict[str, object] = {}     # device tensors (add_device)
 
     # --- mutators (armed hot path: one lock per batch-granular event) ----
 
     def count(self, name: str, delta: float = 1) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + delta
+
+    def add_device(self, name: str, value) -> None:
+        """Add a device tensor (a count, or counts to sum) into counter
+        ``name``'s accumulator on that device, without waiting for the
+        device; :meth:`fold_device` moves the accumulators into the
+        counters."""
+        import torch
+
+        with self._lock:
+            acc = self._device.get(name)
+            if acc is None:
+                acc = self._device[name] = torch.zeros((), dtype=torch.int64,
+                                                       device=value.device)
+            acc += value if value.dim() == 0 else value.sum()
+
+    def fold_device(self) -> None:
+        """Add each device accumulator into its counter and drop it.  Reading
+        an accumulator waits for the device work enqueued before it: call
+        this once that work is known to be done (``Tracer.collect``)."""
+        with self._lock:
+            accs, self._device = self._device, {}
+        for name, acc in accs.items():
+            self.count(name, int(acc))
 
     def gauge_set(self, name: str, value: float) -> None:
         with self._lock:
@@ -246,6 +270,7 @@ class Registry:
             self.counters.clear()
             self.gauges.clear()
             self.sketches.clear()
+            self._device.clear()
 
 
 #: process-wide registry, disarmed by default (hooks reduce to a bool load)

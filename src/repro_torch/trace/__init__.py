@@ -12,16 +12,25 @@ simulator to pick batch size and device count per workload
 
 from .span import (  # noqa: F401
     CPU_STAGES,
+    LLM_STAGES,
     STAGE_NAMES,
     ST_ACK,
     ST_APPLY,
+    ST_BACKWARD,
     ST_CUT,
+    ST_DECODE_STEP,
     ST_DRIVER,
     ST_ENCODE,
     ST_FLUSH,
+    ST_FORWARD,
+    ST_MOE_DISPATCH,
+    ST_MOE_ROUTE,
+    ST_OPTIMIZER,
+    ST_PREFILL,
     ST_PUBLISH,
     ST_RDECODE,
     ST_RREPLAY,
+    ST_SCAN_BWD,
     ST_SEQUENCE,
     ST_SHIP,
     ST_VALIDATE,
