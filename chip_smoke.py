@@ -5,7 +5,7 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It puts ``src`` on ``sys.path`` itself, builds the six ``sm_90a`` kernels
+It puts ``src`` on ``sys.path`` itself, builds the ``sm_90a`` kernels
 from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all started
 together), and then:
 
@@ -35,7 +35,11 @@ together), and then:
    S=T=2048, 48 / 8 heads of 128, softcap 30); every case also checks the log-sum-exp
    output against the plain version, ``o`` bit-identical with and without
    it, and its cost; the training shape also times the torch-op attention
-   backward and SDPA's), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
+   backward and SDPA's), the attention backward kernel at hymba-1.5b's
+   training shape (B=8, S=T=2048, 25 query and 5 KV heads of 64, window
+   1024 and full causal, bfloat16: against ``_flash_bwd``, with the device
+   ms of each of its two launches, its bound at 10·D flops a pair, and
+   ``_flash_bwd``'s and SDPA's backward times), the chunked SSM scan (B=8, H=25, S=2048, P=64, N=16, float32
    and bfloat16, plus S=1000; with its device operations per call and the
    device ms of each of its three launches) and the chunked wkv6
    recurrence (rwkv6-7b's prefill shape, B=8, H=64, S=2048, K=V=64,
@@ -214,6 +218,7 @@ from repro_torch.kernels.batch_occ import (
 )
 from repro_torch.kernels.flash_attention import (
     attention_pairs,
+    flash_attention_bwd,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -918,6 +923,65 @@ def _flash_case(gen, b, s, window, dtype, dev, hq=25, hkv=5, d=64, train=False, 
     )
 
 
+def _flash_bwd_case(gen, b, s, window, dev, hq=25, hkv=5, d=64):
+    """The backward kernel at a training shape (bf16, causal, the model's
+    (B, S, H, D) layout as views) against ``_flash_bwd`` on the same inputs
+    and the forward kernel's log-sum-exp, within 3e-2 of each gradient's
+    largest value (the card tests' bf16 limit); timed beside ``_flash_bwd``
+    and SDPA's backward on the same inputs (timed only).  The bound: 10·D
+    flops an unmasked pair (S, dP, dV, dK, dQ) against q, k, v, do and lse
+    read once and dq, dk, dv written once."""
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv, hq))
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    _, lse = flash_attention_fwd(qh, kh, vh, window=window, return_lse=True)
+    call = lambda: flash_attention_bwd(qh, kh, vh, lse, doh, window=window)    # noqa: E731
+    got = call()
+    torch.cuda.synchronize()
+    want = attention_mod._flash_bwd(q, k, v, lse, do, True, window, None)
+    errs = []
+    for g, w in zip(got, want):
+        g, w = g.transpose(1, 2).float(), w.float()
+        assert torch.isfinite(g).all()
+        errs.append(float((g - w).abs().max() / w.abs().max()))
+    assert max(errs) <= 3e-2, errs
+    del got, want
+    calls = 5
+    rows = _profiled_calls(call, calls, per_call=2)
+    phases = {}           # device ms per call of each of the two launches
+    for key, (ms, _) in rows.items():
+        m = re.search(r"flash_bwd_\w+_kernel", key)
+        name = m.group(0) if m else key[:60]
+        phases[name] = phases.get(name, 0.0) + ms / calls
+    leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
+    if window is None:
+        ref, library = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True), \
+            "SDPA is_causal, backward"
+    else:
+        pos = torch.arange(s, device=dev)
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        ref, library = F.scaled_dot_product_attention(*leaves, attn_mask=mask, enable_gqa=True), \
+            "SDPA, boolean window mask, backward"
+    library_ms = _median_ms(lambda: torch.autograd.grad(ref, leaves, doh, retain_graph=True),
+                            reps=5, warmup=1)
+    del ref, leaves
+    nbytes = 2 * (3 * b * hq * s * d + 4 * b * hkv * s * d) + 4 * b * hq * s
+    return dict(
+        name="flash_attention_bwd", max_abs_err=max(errs), tol=(0.0, 3e-2),
+        shape=f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} causal window={window} bfloat16",
+        ms=_median_ms(call),
+        device_ms=sum(phases.values()) if rows else None,
+        device_ops_per_call=sum(n for _, n in rows.values()) / calls if rows else None,
+        phase_device_ms=phases,
+        plain_ms=_median_ms(lambda: attention_mod._flash_bwd(q, k, v, lse, do, True, window, None),
+                            reps=5, warmup=1),
+        bound=_bound(nbytes, 10 * d * b * hq * attention_pairs(s, s, window), BF16_FLOPS),
+        library_ms=library_ms, library=library,
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="none: the reference's backward (models/attention.py::_flash_vjp_bwd) is jnp",
+    )
+
+
 def _ssm_case(gen, b, s, dtype, dev):
     h, p, n = 25, 64, 16
     # the model's (B, S, H, P) activations and (B, S, H) steps as views
@@ -1041,6 +1105,8 @@ def check_llm_kernels(seed: int):
     for dt in (torch.bfloat16, torch.float32):
         cases.append(_flash_case(gen, TRAIN_BATCH, TRAIN_SEQ, None, dt, dev, hq=32, hkv=4, d=64,
                                  train=dt == torch.bfloat16))
+    # the backward kernel at hymba-1.5b's training shape: its windowed and its full layers
+    cases += [_flash_bwd_case(gen, TRAIN_BATCH, TRAIN_SEQ, w, dev) for w in (1024, None)]
     # stablelm-12b's prefill shape (32 query / 8 KV heads of 160, causal):
     # bf16 on the tensor-core kernel, fp32 on the CUDA-core one, one device
     # operation a call
@@ -2855,9 +2921,23 @@ def _largest_record(tree, n_slices: int) -> int:
     return most
 
 
+def _per_step(cfg, name: str, run: TrainRun) -> int:
+    """Launches of kernel ``name`` in one bf16 train step: each of
+    ``run.kernels`` twice a forward (the forward and the backward's
+    recompute), and the attention backward kernel once per causal
+    self-attention call (an encoder-decoder's decoder layers, every layer
+    elsewhere) where ``models/attention.py::kernel_backward`` gives it the
+    run's bf16, head dim, softcap and S == T."""
+    if name == "flash_attention_bwd":
+        takes = "flash_attention" in run.kernels and attention_mod.kernel_backward(
+            "cuda", torch.bfloat16, cfg.hd, True, cfg.attn_softcap, run.seq, run.seq)
+        return cfg.n_layers if takes else 0
+    return 2 * _per_forward(cfg, name) if name in run.kernels else 0
+
+
 def _check_step_launches(launched, run: TrainRun, cfg, what: str):
     for name, n in launched.items():
-        assert n == (2 * _per_forward(cfg, name) if name in run.kernels else 0), (what, launched)
+        assert n == _per_step(cfg, name, run), (what, launched)
 
 
 def _train_flops(cfg, params, b: int, s: int):
@@ -3062,7 +3142,7 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
         # (e) one profiled step
         prof = profile_train_step(step_fn, params, opt, _train_batch(pipe, dev, cfg, rng))
         launches = dict(kcuda.LAUNCHES)
-        want = {k: 2 * oracle_per[k] + 2 * _per_forward(cfg, k) * n_steps if k in run.kernels else 0
+        want = {k: (2 * oracle_per[k] if k in run.kernels else 0) + _per_step(cfg, k, run) * n_steps
                 for k in launches}
         assert launches == want, (launches, want)
     finally:
@@ -3079,7 +3159,7 @@ def run_train_path(workdir: str, seed: int, smi: str, run: TrainRun,
         tokens_per_s=tokens / (step_ms / 1e3), model_flops_per_step=flops,
         flop_rate=flops / (step_ms / 1e3), mfu=flops / (step_ms / 1e3) / BF16_FLOPS,
         flop_formula=formula + " per step", profile=prof, state_bytes=state_bytes,
-        launches_per_step={k: 2 * _per_forward(cfg, k) for k in run.kernels},
+        launches_per_step={k: _per_step(cfg, k, run) for k in kcuda.LAUNCHES if _per_step(cfg, k, run)},
         launches=launches, reduced=reduced, seconds=time.perf_counter() - t_phase)
     print(f"train_path {cfg.name}: step {step_ms:.1f} ms (median of steps "
           f"{min(2, run.steps - 1)}-{run.steps - 1}), {out['tokens_per_s']:,.0f} tok/s, "
@@ -3256,8 +3336,9 @@ def run_dryrun_path(par: dict, seed: int, smi: str) -> dict:
     """The dry run held against the card.  (a) In this process, on meta
     tensors: the cost mode over ``parallel_path``'s unsharded step
     (``make_train_step`` with ``compress_grads``, tinyllama-1.1b at 8 x
-    2048), whose counted flash ops must equal the launches a step of it
-    made, and whose roofline lower bound must not exceed the measured step:
+    2048), whose counted flash ops, forward and backward, must each equal
+    the launches a step of it made, and whose roofline lower bound must not
+    exceed the measured step:
     a lower bound above a measurement means the count is wrong.  The bound
     is the largest of its compute (the flop bound: ``dot_flops`` at the bf16
     peak), memory and collective terms, so the flop bound is held too; the
@@ -3277,9 +3358,12 @@ def run_dryrun_path(par: dict, seed: int, smi: str) -> dict:
     cost = analyze(make_train_step(model, opt_cfg, compress_grads=True), params,
                    adamw.init(params, opt_cfg), batch)
     run = par["runs"]["unsharded"]
+    for name in ("flash_attention", "flash_attention_bwd"):
+        launched = run["launches"][name] / PARALLEL_STEPS
+        counted = cost.kernel_ops.get(name, 0)
+        assert counted == launched, f"dryrun_path: {counted} {name} ops counted, {launched} launched a step"
     launched = run["launches"]["flash_attention"] / PARALLEL_STEPS
     counted = cost.kernel_ops.get("flash_attention", 0)
-    assert counted == launched, f"dryrun_path: {counted} flash ops counted, {launched} launched a step"
     roof = dryrun.roofline(cost.dot_flops, cost.traffic_bytes, cost.collective_traffic)
     flop_ms = cost.dot_flops / dryrun.PEAK_FLOPS * 1e3
     bound_ms = roof["step_s_lower_bound"] * 1e3
@@ -3522,6 +3606,7 @@ def main(argv=None) -> int:
     tick("dryrun_path")
 
     # training, one arch at a time, each with its own counts
+    train_launches = {}
     for run in TRAIN_RUNS:
         workdir = tempfile.mkdtemp(prefix="chip_smoke-")
         try:
@@ -3531,6 +3616,7 @@ def main(argv=None) -> int:
             shutil.rmtree(workdir, ignore_errors=True)
         for name in run.kernels:
             assert train["launches"][name] > 0, f"{name} never launched on train_path {run.arch}"
+        train_launches[run.arch] = train["launches"]
         print("train_path " + json.dumps(train, default=float))
         tick(f"train_path {run.arch}")
 
@@ -3538,11 +3624,14 @@ def main(argv=None) -> int:
     main_cases = {name: next(k for k in llm_cases if k["name"] == name) for name in LLM_KERNELS}
     # the D = 160 cases and the family cases, each with the launches of the
     # serve path whose shape it has (grok-1-314b's softcap case has none)
-    served = [(k, "stablelm-12b") for k in llm_cases
+    served = [(k, serve_launches["stablelm-12b"]) for k in llm_cases
               if k["name"] == "flash_attention" and " D=160 " in k["shape"]]
-    served += [(k, k["path"]) for k in llm_cases if k.get("path")]
-    for k, path in [(k, None) for k in kernels + [main_cases[name] for name in LLM_KERNELS]] + served:
-        n = launches[k["name"]] if path is None else serve_launches[path][k["name"]]
+    served += [(k, serve_launches[k["path"]]) for k in llm_cases if k.get("path")]
+    # the backward cases, with the launches of the train path at their shape
+    served += [(k, train_launches["hymba-1.5b"]) for k in llm_cases
+               if k["name"] == "flash_attention_bwd"]
+    for k, counts in [(k, launches) for k in kernels + [main_cases[n] for n in LLM_KERNELS]] + served:
+        n = counts[k["name"]]
         line.append({
             "name": k["name"], "route": "cuda", "source": k["source"],
             "replaces": k["replaces"], "launches": n,

@@ -1,10 +1,11 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The kernels live in ``csrc/*.cu`` with a plain C interface: the three OLTP
-kernels and the three of the LLM prefill (flash attention, the chunked SSM
-scan, the chunked wkv6 recurrence).  At first use on a CUDA tensor,
-:func:`lib` compiles each source with ``nvcc`` for ``sm_90a`` (one process
-per source, all started together), links them
+kernels, the three of the LLM prefill (flash attention, the chunked SSM
+scan, the chunked wkv6 recurrence) and flash attention's training
+backward.  At first use on a CUDA tensor, :func:`lib` compiles each source
+with ``nvcc`` for ``sm_90a`` (one process per source, all started
+together), links them
 into one shared library under ``build/repro_torch/`` at the repository root,
 and loads it with ``ctypes``.  The library's file name carries a digest of
 the sources and flags, so an edited source rebuilds and an unchanged one is
@@ -37,7 +38,7 @@ from typing import Callable, Dict, List, Optional
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 SOURCES = ("seg_reduce.cu", "scatter_max.cu", "validate_sequence.cu",
-           "flash_attention.cu", "ssm_scan.cu", "rwkv6.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu", "ssm_scan.cu", "rwkv6.cu")
 HEADERS = ("common.cuh", "device_guard.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
@@ -54,6 +55,7 @@ LAUNCHES: Dict[str, int] = {
     "ssn_scatter_max": 0,
     "validate_sequence": 0,
     "flash_attention": 0,
+    "flash_attention_bwd": 0,
     "ssm_scan_chunked": 0,
     "rwkv6_chunked": 0,
 }
@@ -200,6 +202,8 @@ def lib() -> ctypes.CDLL:
             f = ctypes.c_float
             dll.repro_flash_attention.argtypes = [p, p, p, p, p, meta, i, i, i, i, f, f, i, p]
             dll.repro_flash_attention.restype = i
+            dll.repro_flash_attention_bwd.argtypes = [p] * 10 + [meta, i, f, i, p]
+            dll.repro_flash_attention_bwd.restype = i
             dll.repro_ssm_scan_chunked.argtypes = [p, p, p, p, p, p, p, p, meta, i, i, p]
             dll.repro_ssm_scan_chunked.restype = i
             dll.repro_rwkv6_chunked.argtypes = [p, p, p, p, p, p, p, p, meta, i, i, p]

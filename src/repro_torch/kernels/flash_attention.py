@@ -31,6 +31,14 @@ the card the wrapper calls the launch directly: whether a dispatcher op
 costs a call host time there is not resolved within the host's noise
 (``tools/flash_op_ab.py``), so the launch keeps its direct route.
 
+:func:`flash_attention_bwd` is the training backward of causal bfloat16
+attention at head dim 64 (``csrc/flash_attention_bwd.cu``): ``_Flash.backward``
+calls it for those inputs on the card and on meta tensors, and takes its
+plain twin, ``repro_torch.models.attention._flash_bwd``, for every other
+form and on the CPU.  It raises on what it does not take; on meta it is one
+dispatcher op, ``repro_torch::flash_attention_bwd`` (:data:`OP_BWD`,
+:func:`op_cost_bwd`), as the forward is.
+
 Layout: the wrapper takes any strides whose last (head) dim is contiguous
 and passes them to the kernel, so the model hands over ``(B, S, H, D)``
 activations as ``(B, H, S, D)`` views without a copy; the output is
@@ -238,3 +246,97 @@ def flash_attention_fwd(
     # on the card the launch is called directly: the op's dispatch costs host time
     out, lse = OP(*args) if dev.type == "meta" else _launch(*args)
     return (out, lse) if return_lse else out
+
+
+BWD_HEAD_DIM = 64
+
+
+def _check_bwd_inputs(q, k, v, lse, do, causal, window) -> None:
+    """What the backward kernel takes: causal attention, bfloat16 q, k, v
+    and do at head dim 64, S == T, whole groups of query heads, the
+    forward's float32 ``(B, Hq, S)`` log-sum-exp, a positive window, and
+    the forward's layout rules (contiguous head dims, TMA's alignment)."""
+    if not causal:
+        raise ValueError("flash_attention_bwd: the kernel takes causal attention only")
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v, do)):
+        raise TypeError(f"flash_attention_bwd: q/k/v/do must be bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}, {do.dtype}")
+    b, hq, s, d = q.shape
+    if d != BWD_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: the kernel takes head dim {BWD_HEAD_DIM}, not {d}")
+    hkv = k.shape[1]
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d) or do.shape != q.shape
+            or hq % hkv):
+        raise ValueError(f"flash_attention_bwd: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, do {tuple(do.shape)} (S == T, whole head groups)")
+    if lse.shape != (b, hq, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous float32 {(b, hq, s)}")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention_bwd: window must be positive, not {window}")
+    if any(x.device != q.device for x in (k, v, lse, do)):
+        raise ValueError("flash_attention_bwd: the inputs are on different devices")
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if x.stride(3) != 1:
+            raise ValueError(f"flash_attention_bwd: {name}'s head dim must be contiguous")
+    check_tma_layout(q=q, k=k, v=v, do=do)
+
+
+def _meta_bwd(q, k, v, lse, do, window):
+    """dq, dk and dv's shapes and dtypes in q's, k's and v's layouts, nothing launched."""
+    return tuple(torch.empty_like(x) for x in (q, k, v))
+
+
+OP_BWD = cuda.define_op(
+    "flash_attention_bwd",
+    "(Tensor q, Tensor k, Tensor v, Tensor lse, Tensor do, int window) -> (Tensor, Tensor, Tensor)",
+    _meta_bwd)
+
+
+def op_cost_bwd(q, k, v, lse, do, window) -> Tuple[int, int]:
+    """``(flops, bytes)`` of one backward call, from the op's arguments:
+    10·D flops per unmasked pair and head (S, dP, dV, dK and dQ), and q, k,
+    v, do and lse read once, dq, dk and dv written once."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    flops = 10 * d * b * hq * attention_pairs(s, s, window or None, True)
+    return flops, q.element_size() * (3 * b * hq * s * d + 4 * b * hkv * s * d) + 4 * b * hq * s
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,      # (B, Hq, S, D)
+    k: torch.Tensor,      # (B, Hkv, S, D)
+    v: torch.Tensor,      # (B, Hkv, S, D)
+    lse: torch.Tensor,    # (B, Hq, S) float32, from flash_attention_fwd(..., return_lse=True)
+    do: torch.Tensor,     # (B, Hq, S, D): the output's gradient
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+):
+    """dq, dk and dv of causal attention, in q's, k's and v's layouts and
+    bfloat16: ``_flash_bwd``'s function (each row's normaliser and ``dsum``
+    from the recomputed scores), computed by the two launches of
+    ``csrc/flash_attention_bwd.cu``; on meta tensors, :data:`OP_BWD`'s
+    outputs.  Raises on any input the kernel does not take, and on the CPU."""
+    _check_bwd_inputs(q, k, v, lse, do, causal, window)
+    dev = q.device
+    if dev.type == "meta":
+        return OP_BWD(q, k, v, lse, do, int(window or 0))
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: the kernel runs on the card, not on {dev}; "
+                         f"the plain twin is repro_torch.models.attention._flash_bwd")
+    b, hq, s, d = q.shape
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))     # dense inputs keep their strides
+    inv = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    dsum = torch.empty_like(inv)
+    meta = (ctypes.c_longlong * 25)(
+        b, hq, k.shape[1], s,
+        *(x.stride(i) for x in (q, k, v, do, dq, dk, dv) for i in range(3)),
+    )
+    err = cuda.lib().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        inv.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), meta,
+        int(window or 0), 1.0 / math.sqrt(d), dev.index, cuda.current_stream(dev.index),
+    )
+    cuda.check(err, "flash_attention_bwd")
+    cuda.count_launch("flash_attention_bwd")
+    return dq, dk, dv

@@ -11,10 +11,15 @@ as the reference computes it outside any kernel.
 
 Training differentiates :func:`attend` through :class:`_Flash`, the
 counterpart of the reference's ``custom_vjp`` ``_flash``: its forward is
-the same kernel call, which also returns each row's log-sum-exp, and its
-backward (:func:`_flash_bwd`) is the reference's ``_flash_vjp_bwd`` in
-torch ops (with each row's normaliser and ``dsum`` recomputed in a first
-pass), identical on both devices.
+the same kernel call, which also returns each row's log-sum-exp.  Its
+backward is the reference's ``_flash_vjp_bwd`` (with each row's normaliser
+and ``dsum`` recomputed in a first pass) in one of two forms, chosen by
+what the inputs show (:func:`kernel_backward`): the hand-written kernel
+``flash_attention_bwd`` for causal bfloat16 attention at head dim 64 on the
+card (and on meta tensors, as the dispatcher op the dry run counts), and
+its plain twin :func:`_flash_bwd`, torch ops in float32, for every other
+form (float32, other head dims, the softcap, bidirectional and cross
+attention) and on the CPU.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from typing import Optional
 
 import torch
 
-from ..kernels.flash_attention import flash_attention_fwd
+from ..kernels.flash_attention import BWD_HEAD_DIM, flash_attention_bwd, flash_attention_fwd
+from ..obs.metrics import REGISTRY
+from ..trace.span import ST_FLASH_BWD, TRACER
 
 NEG_INF = -1e30
 CHUNK_K = 1024      # the backward's KV chunk (the reference's attend default)
@@ -157,11 +164,24 @@ def _flash_bwd(q, k, v, lse, do, causal: bool, window: Optional[int],
     return dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
 
+def kernel_backward(device_type: str, dtype: torch.dtype, head_dim: int, causal: bool,
+                    softcap: Optional[float], s: int, t: int) -> bool:
+    """Whether :class:`_Flash`'s backward calls ``flash_attention_bwd``: on
+    the card (and on meta, which counts the card's program), bfloat16, head
+    dim 64, causal (any window), no softcap and S == T.  Every other input,
+    and the CPU, takes :func:`_flash_bwd`."""
+    return (device_type in ("cuda", "meta") and dtype == torch.bfloat16
+            and head_dim == BWD_HEAD_DIM and causal and softcap is None and s == t)
+
+
 class _Flash(torch.autograd.Function):
     """Attention with the flash backward: the forward is the kernel wrapper
     on detached inputs, returning the output and each row's log-sum-exp;
-    q, k, v and the log-sum-exp are saved; the backward is
-    :func:`_flash_bwd`.  Inputs and output are (B, S, H, D)."""
+    q, k, v and the log-sum-exp are saved; the backward is the kernel
+    ``flash_attention_bwd`` where :func:`kernel_backward` says so, else
+    :func:`_flash_bwd`, inside one ``flash_bwd`` span while the tracer is
+    on, which also counts ``llm.attn.bwd_calls`` and, on the kernel,
+    ``llm.attn.bwd_kernel``.  Inputs and output are (B, S, H, D)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
@@ -176,7 +196,20 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q, k, v, lse, do, ctx.causal, ctx.window, ctx.softcap)
+        b, s, _, d = q.shape
+        kernel = kernel_backward(q.device.type, q.dtype, d, ctx.causal, ctx.softcap, s, k.shape[1])
+        with TRACER.span(ST_FLASH_BWD, tokens=b * s):
+            if kernel:
+                dq, dk, dv = flash_attention_bwd(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), lse,
+                    do.contiguous().transpose(1, 2), causal=True, window=ctx.window)
+                dq, dk, dv = dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
+            else:
+                dq, dk, dv = _flash_bwd(q, k, v, lse, do, ctx.causal, ctx.window, ctx.softcap)
+        if TRACER.enabled:
+            REGISTRY.count("llm.attn.bwd_calls")
+            if kernel:
+                REGISTRY.count("llm.attn.bwd_kernel")
         return dq, dk, dv, None, None, None
 
 

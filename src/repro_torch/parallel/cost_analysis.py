@@ -16,7 +16,8 @@ Conventions (the reference's, where they carry over):
   registry (``mm``, ``addmm``, ``bmm``, ``baddbmm``, convolutions; an
   ``einsum`` or ``matmul`` reaches the dispatcher as those), plus each
   hand-written kernel op's own formula (``KERNEL_COSTS``: attention 4·D a
-  pair, the scan 5·P·N a step and head, wkv6 its block form's flops).
+  pair, its backward 10·D, the scan 5·P·N a step and head, wkv6 its block
+  form's flops).
   Elementwise ops are excluded.
 * **Traffic** (``traffic_bytes``) — per op, its tensor operands' bytes plus
   its results' bytes.  In eager torch every op is its own kernel, so this is
@@ -123,6 +124,7 @@ _WRITE_ONLY = {"aten::copy_", "aten::fill_", "aten::zero_"}
 #: flops and bytes of one call of each hand-written kernel op
 KERNEL_COSTS: Dict[Any, Tuple[str, Callable]] = {
     flash_attention.OP: ("flash_attention", flash_attention.op_cost),
+    flash_attention.OP_BWD: ("flash_attention_bwd", flash_attention.op_cost_bwd),
     ssm_scan.OP: ("ssm_scan_chunked", ssm_scan.op_cost),
     rwkv6.OP: ("rwkv6_chunked", rwkv6.op_cost),
 }

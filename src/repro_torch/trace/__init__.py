@@ -21,6 +21,7 @@ from .span import (  # noqa: F401
     ST_DECODE_STEP,
     ST_DRIVER,
     ST_ENCODE,
+    ST_FLASH_BWD,
     ST_FLUSH,
     ST_FORWARD,
     ST_MOE_DISPATCH,

@@ -28,10 +28,10 @@ claims a ring slot under a lock and writes ten scalar cells — a few
 microseconds per *batch*-granular event, which is what keeps the measured
 tracing overhead below the 3% budget (``BENCH_trace.json``).
 
-The LLM path (serving, training, the MoE and the scans' backward) opens
-nested spans with :meth:`Tracer.span` instead, a context manager that is
-one bool test when the tracer is off (pinned, with the same filter, by
-``tests/test_torch_llm_spans.py``).  Each span's row carries its stage,
+The LLM path (serving, training, the MoE, the scans' and attention's
+backwards) opens nested spans with :meth:`Tracer.span` instead, a context
+manager that is one bool test when the tracer is off (pinned, with the
+same filter, by ``tests/test_torch_llm_spans.py``).  Each span's row carries its stage,
 its unit (a call or step index) in ``batch``, its layer in ``aux``, its
 tokens in ``n_txn`` and the ring index of the span around it in
 ``parent`` (-1 for the OLTP rows).  On the card a span also records a CUDA
@@ -89,14 +89,15 @@ ST_OPTIMIZER = 18    # train step: the AdamW update
 ST_SCAN_BWD = 19     # the chunked scans' torch-op backward (autograd's thread)
 ST_MOE_ROUTE = 20    # MoE: router, top-k and capacity positions
 ST_MOE_DISPATCH = 21  # MoE: dispatch/combine and the gather product; the scatter product
+ST_FLASH_BWD = 22     # attention's backward, kernel or torch ops (autograd's thread)
 
 STAGE_NAMES = (
     "validate", "sequence", "encode", "publish", "flush", "xprepare",
     "ship", "apply", "cut", "ack", "rdecode", "rreplay", "driver",
     "writeback", "prefill", "decode_step", "forward", "backward",
-    "optimizer", "scan_bwd", "moe_route", "moe_dispatch",
+    "optimizer", "scan_bwd", "moe_route", "moe_dispatch", "flash_bwd",
 )
-LLM_STAGES = frozenset(range(ST_PREFILL, ST_MOE_DISPATCH + 1))
+LLM_STAGES = frozenset(range(ST_PREFILL, ST_FLASH_BWD + 1))
 RANGE_PREFIX = "repro_torch."
 
 # stages that occupy a (GIL-serialized) CPU; ST_FLUSH occupies its device

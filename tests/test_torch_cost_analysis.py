@@ -231,7 +231,10 @@ def test_train_step_counts_the_forward_and_its_recompute(arch, no_plain):
     c = analyze(make_train_step(model, opt_cfg), params, adamw.init(params, opt_cfg), batch)
     want = {**({"flash_attention": attention_calls(cfg)} if attention_calls(cfg) else {}),
             **_mixer_layers(cfg)}
-    assert c.kernel_ops == {k: 2 * n for k, n in want.items()}
+    # the backward kernel's op once per causal self-attention call (every
+    # attention layer, an encoder-decoder's decoder layers)
+    bwd = {"flash_attention_bwd": cfg.n_layers} if attention_calls(cfg) else {}
+    assert c.kernel_ops == {**{k: 2 * n for k, n in want.items()}, **bwd}
     new_params = c.result[0]
     assert all(t.device.type == "meta" for t in tree_leaves(new_params))
     assert tree_map(lambda t: tuple(t.shape), new_params) == tree_map(lambda t: tuple(t.shape),
@@ -251,6 +254,24 @@ def test_kernel_ops_count_their_formulas():
     out, lse = c.result
     assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
     assert tuple(lse.shape) == (2, 4, 100) and out.stride() == q.stride()
+
+
+def test_backward_kernel_op_counts_its_formula():
+    """The backward kernel on meta: one op, 10·D flops an unmasked pair,
+    q, k, v, do and lse read once and dq, dk, dv written once, each
+    gradient in its input's layout."""
+    q, do = (_meta(2, 100, 4, 64, dtype=torch.bfloat16).transpose(1, 2) for _ in range(2))
+    k = _meta(2, 100, 2, 64, dtype=torch.bfloat16).transpose(1, 2)
+    lse = _meta(2, 4, 100)
+    c = analyze(lambda: flash_attention.flash_attention_bwd(q, k, k, lse, do, window=16))
+    flops, nbytes = flash_attention.op_cost_bwd(q, k, k, lse, do, 16)
+    assert c.kernel_ops == {"flash_attention_bwd": 1}
+    assert c.dot_flops == c.kernel_flops == flops == 10 * 64 * 2 * 4 * sum(
+        min(i + 1, 16) for i in range(100))
+    assert c.traffic_bytes == nbytes == 2 * (3 * 2 * 4 * 100 * 64 + 4 * 2 * 2 * 100 * 64) \
+        + 4 * 2 * 4 * 100
+    dq, dk, dv = c.result
+    assert dq.stride() == q.stride() and dk.stride() == k.stride() and dv.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("s,t,window,causal", [
@@ -327,8 +348,9 @@ def test_kernel_device_admits_meta_and_still_refuses_a_missing_card():
 
 def test_kernel_ops_are_the_wrappers_dispatcher_ops():
     assert set(name for name, _ in cost_analysis.KERNEL_COSTS.values()) == {
-        "flash_attention", "ssm_scan_chunked", "rwkv6_chunked"}
+        "flash_attention", "flash_attention_bwd", "ssm_scan_chunked", "rwkv6_chunked"}
     assert flash_attention.OP is torch.ops.repro_torch.flash_attention.default
+    assert flash_attention.OP_BWD is torch.ops.repro_torch.flash_attention_bwd.default
     assert ssm_scan.OP is torch.ops.repro_torch.ssm_scan_chunked.default
     assert rwkv6.OP is torch.ops.repro_torch.rwkv6_chunked.default
     # a Meta kernel only: on the card the wrappers launch directly

@@ -25,6 +25,7 @@ from repro.kernels.ssm_scan import ssm_scan_chunked as jssm
 from repro_torch.kernels import cuda
 from repro_torch.kernels.flash_attention import (
     check_tma_layout,
+    flash_attention_bwd,
     flash_attention_fwd,
     flash_attention_plain,
 )
@@ -146,6 +147,49 @@ def test_tma_layout_rule(make, ok):
     else:
         with pytest.raises(ValueError):
             check_tma_layout(q=x)
+
+
+def _bwd_args(b=1, s=40, hq=4, hkv=2, d=64, dtype=torch.bfloat16):
+    """q, k, v, lse and do of the backward kernel, (B, H, S, D) views of the
+    model's (B, S, H, D) layout, on the CPU."""
+    q, do = (torch.zeros(b, s, hq, d, dtype=dtype).transpose(1, 2) for _ in range(2))
+    k, v = (torch.zeros(b, s, hkv, d, dtype=dtype).transpose(1, 2) for _ in range(2))
+    return dict(q=q, k=k, v=v, lse=torch.zeros(b, hq, s), do=do)
+
+
+BWD_REFUSED = [
+    # (how the arguments differ from the kernel's, keywords, error, message)
+    pytest.param(dict(d=128), {}, ValueError, "head dim 64", id="D=128"),
+    pytest.param(dict(d=160), {}, ValueError, "head dim 64", id="D=160"),
+    pytest.param(dict(dtype=torch.float32), {}, TypeError, "bfloat16", id="float32"),
+    pytest.param({}, dict(causal=False), ValueError, "causal", id="bidirectional"),
+    pytest.param({}, dict(window=0), ValueError, "window", id="window 0"),
+    pytest.param(dict(hkv=3), {}, ValueError, "shapes", id="4 heads over 3"),
+    pytest.param({}, dict(k=torch.zeros(1, 2, 48, 64, dtype=torch.bfloat16)), ValueError,
+                 "shapes", id="S != T"),
+    pytest.param({}, dict(lse=torch.zeros(1, 4, 40, dtype=torch.bfloat16)), ValueError, "lse",
+                 id="bf16 lse"),
+    pytest.param({}, dict(q=_strided((1, 4, 40, 64), (4 * 40 * 68, 68, 4 * 68, 1))), ValueError,
+                 "16 B", id="unaligned position stride"),
+    pytest.param({}, dict(q=torch.zeros(1, 4, 40, 128, dtype=torch.bfloat16)[..., ::2]),
+                 ValueError, "contiguous", id="strided head dim"),
+    pytest.param({}, {}, ValueError, "on the card", id="CPU tensors it would take"),
+]
+
+
+@pytest.mark.parametrize("shape,kw,err,match", BWD_REFUSED)
+def test_flash_attention_bwd_checks_its_inputs_on_the_cpu(shape, kw, err, match):
+    """The backward kernel's wrapper raises on every input it does not take,
+    and on CPU tensors it would take (the plain twin is ``_flash_bwd``),
+    launching nothing."""
+    args = {**_bwd_args(**shape), **kw}
+    causal = args.pop("causal", True)
+    window = args.pop("window", None)
+    before = dict(cuda.LAUNCHES)
+    with pytest.raises(err, match=match):
+        flash_attention_bwd(args["q"], args["k"], args["v"], args["lse"], args["do"],
+                            causal=causal, window=window)
+    assert cuda.LAUNCHES == before
 
 
 # --- chunked SSM scan -------------------------------------------------------------

@@ -199,6 +199,23 @@ def test_train_step_spans_in_order_and_bits_unchanged(accum_steps):
     assert all(d.t0[i] < d.t0[j] for i, j in zip(top, top[1:]))
 
 
+def test_attention_backward_span_per_layer_and_its_counters():
+    """A CPU train step: one ``flash_bwd`` span per attention layer under
+    each backward, ``llm.attn.bwd_calls`` equal to the layer count a
+    backward, and ``llm.attn.bwd_kernel`` 0 (the CPU takes ``_flash_bwd``)."""
+    _, _, d = _train("hymba-1.5b", 1, True)
+    layers = _model("hymba-1.5b").cfg.n_layers
+    spans = _rows(d, tspan.ST_FLASH_BWD)
+    assert len(spans) == 2 * layers
+    assert all(d.stage[d.parent[i]] == ST_BACKWARD for i in spans)
+    assert sorted(d.aux[i] for i in spans) == sorted(list(range(layers)) * 2)
+    assert all(d.n_txn[i] == 4 * 64 for i in spans)
+    assert REGISTRY.counter_value("llm.attn.bwd_calls") == 2 * layers
+    assert REGISTRY.counter_value("llm.attn.bwd_kernel") == 0
+    assert tspan.STAGE_NAMES[tspan.ST_FLASH_BWD] == "flash_bwd"
+    assert tspan.ST_FLASH_BWD in tspan.LLM_STAGES
+
+
 def _aligned(model, toks):
     """Median and largest gap (us) between the rows' and the ranges' starts
     and ends on the profiler's clock, over every span of a run."""

@@ -179,6 +179,56 @@ def test_flash_backward_ignores_the_forwards_rounding(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(again, kept))
 
 
+@pytest.mark.parametrize("device,dtype,d,causal,softcap,s,t,kernel", [
+    ("cuda", torch.bfloat16, 64, True, None, 2048, 2048, True),
+    ("cuda", torch.bfloat16, 64, True, None, 77, 77, True),
+    ("cuda", torch.float32, 64, True, None, 2048, 2048, False),
+    ("cuda", torch.float16, 64, True, None, 2048, 2048, False),
+    ("cuda", torch.bfloat16, 128, True, None, 2048, 2048, False),
+    ("cuda", torch.bfloat16, 160, True, None, 2048, 2048, False),
+    ("cuda", torch.bfloat16, 64, True, 30.0, 2048, 2048, False),
+    ("cuda", torch.bfloat16, 64, False, None, 1500, 1500, False),
+    ("cuda", torch.bfloat16, 64, False, None, 448, 1500, False),
+    ("cuda", torch.bfloat16, 64, True, None, 448, 1500, False),
+    ("cpu", torch.bfloat16, 64, True, None, 2048, 2048, False),
+    ("cpu", torch.float32, 64, True, None, 2048, 2048, False),
+    ("meta", torch.bfloat16, 64, True, None, 2048, 2048, True),
+    ("meta", torch.float32, 64, True, None, 2048, 2048, False),
+    ("meta", torch.bfloat16, 128, True, None, 2048, 2048, False),
+])
+def test_flash_backward_dispatch_rule(device, dtype, d, causal, softcap, s, t, kernel):
+    """``_Flash.backward`` calls the kernel only for causal bf16 attention
+    at head dim 64 with no softcap and S == T (the window is free), on the
+    card and on meta tensors (the dry run counts the card's program); the
+    CPU and every other form take ``_flash_bwd``."""
+    assert attention_mod.kernel_backward(device, dtype, d, causal, softcap, s, t) is kernel
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_flash_backward_on_the_cpu_is_the_plain_twin(monkeypatch, window):
+    """On CPU tensors, bf16 ones included, ``_Flash.backward`` returns
+    ``_flash_bwd``'s gradients, looked up by name at each call."""
+    calls = []
+    plain = attention_mod._flash_bwd
+
+    def counted(*a):
+        calls.append(a[4].dtype)
+        return plain(*a)
+
+    monkeypatch.setattr(attention_mod, "_flash_bwd", counted)
+    gen = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(1, 12, h, 64, generator=gen).to(torch.bfloat16) for h in (4, 2, 2))
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+    out = attend(*leaves, window=window)
+    do = torch.randn(out.shape, generator=gen).to(torch.bfloat16)
+    got = torch.autograd.grad(out, leaves, do)
+    assert calls == [torch.bfloat16]
+    _, lse = flash_attention_fwd(*(x.detach().transpose(1, 2) for x in (q, k, v)), window=window,
+                                 return_lse=True)
+    want = plain(*(x.detach() for x in (q, k, v)), lse, do, True, window, None)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_flash_forward_returns_the_plain_lse():
     """The kernel wrapper's CPU path: ``lse`` is ``logsumexp`` of the
     scaled, masked scores, and asking for it leaves ``o`` unchanged."""
