@@ -1,9 +1,17 @@
-"""Device ms a step of the kernels under attention's torch-op backward
-(``repro_torch.models.attention._flash_bwd``)."""
-from bench.readers import ATTN_BWD, ms_per_unit
+"""Device ms a step of attention's backward: each ``flash_bwd`` span's CUDA
+event pair (``models/attention.py``, ``_Flash.backward``, opened on
+autograd's thread around the backward kernel or its torch-op twin
+``_flash_bwd``; an event pair sees the kernel's driver-API launches, which
+no profiler range parents), summed over a step, in the span pass of
+``bench/program.py``.  Nothing where the program has no ``flash_bwd`` stage."""
+from bench import program
 
-RANGES = (ATTN_BWD,)
+RANGES = ()
 
 
 def read(trace):
-    return ms_per_unit(trace, ATTN_BWD)
+    from repro_torch.trace import span
+
+    if "flash_bwd" not in span.STAGE_NAMES:
+        return None
+    return program.device_ms_per_unit(trace, "flash_bwd")

@@ -18,6 +18,14 @@ def _flash_cost(q, k, v, *, causal=True, window=None, softcap=None, return_lse=F
     return flops, nbytes, ys.PEAK_BF16 if q.element_size() == 2 else ys.PEAK_FP32
 
 
+def _flash_bwd_cost(q, k, v, lse, do, *, causal=True, window=None):
+    # the backward kernel takes bfloat16 alone
+    b, hq, s, d = q.shape
+    flops, nbytes = ys.flash_bwd_cost(b, hq, k.shape[1], s, k.shape[2], d, q.element_size(), causal,
+                                      window)
+    return flops, nbytes, ys.PEAK_BF16
+
+
 def _scan_cost(x, dt, decay, bmat, cmat):
     b, h, s, p = x.shape
     flops, nbytes = ys.scan_cost(b, h, s, p, bmat.shape[-1], x.element_size())
@@ -25,6 +33,7 @@ def _scan_cost(x, dt, decay, bmat, cmat):
 
 
 FLASH_FWD = ("bench.flash_fwd", ATTN_MODULE, "flash_attention_fwd", _flash_cost)
+FLASH_BWD = ("bench.flash_bwd", ATTN_MODULE, "flash_attention_bwd", _flash_bwd_cost)
 ATTN_BWD = ("bench.attn_bwd", ATTN_MODULE, "_flash_bwd", None)
 SCAN_FWD = ("bench.scan_fwd", "repro_torch.models.ssm", "ssm_scan_chunked", _scan_cost)
 MOE = ("bench.moe", "repro_torch.models.lm", "moe_fwd", None)
@@ -32,23 +41,27 @@ OPTIMIZER = ("bench.optimizer", "repro_torch.optim.adamw", "update", None)
 DECODE = ("bench.decode", "repro_torch.models.api", "Model.decode_step", None)
 
 # the device kernels of a hand-written wrapper's call, by name (frozen from
-# ``kernels/csrc/flash_attention.cu`` and ``ssm_scan.cu``): each is launched
-# once a call
+# ``kernels/csrc/flash_attention.cu``, ``flash_attention_bwd.cu`` and
+# ``ssm_scan.cu``), and how many distinct kernels a call launches, each once
 KERNELS = {
-    FLASH_FWD[0]: r"\bflash_fwd_(wgmma_)?kernel<",
-    SCAN_FWD[0]: r"\bssm_chunked_(state|pass|out)_kernel\b",
+    FLASH_FWD[0]: (r"\bflash_fwd_(wgmma_)?kernel<", 1),
+    FLASH_BWD[0]: (r"\bflash_bwd_(dq|dkdv)_kernel\b", 2),
+    SCAN_FWD[0]: (r"\bssm_chunked_(state|pass|out)_kernel\b", 3),
 }
 
 
 def roofline_pct(trace, rng):
     """Sum of the calls' least times over the device time of their kernels
     (by name, from the device-only pass, which runs the same units), in %.
-    Nothing where a kernel of the wrapper was launched another number of
-    times than it was called: the names then do not stand for the calls."""
+    Nothing where the wrapper's kernels were not each launched once a call
+    (one missing, or launched another number of times than it was called):
+    the names then do not stand for the calls."""
     name = rng[0]
     calls = trace.costs.get(name) or []
-    dev, launches = trace.kernels_named(KERNELS[name])
-    if not calls or dev <= 0 or any(n != len(calls) for n in launches.values()):
+    pattern, per_call = KERNELS[name]
+    dev, launches = trace.kernels_named(pattern)
+    if (not calls or dev <= 0 or len(launches) != per_call
+            or any(n != len(calls) for n in launches.values())):
         return None
     return 100.0 * sum(ys.least_s(f, b, peak) for f, b, peak in calls) / dev
 

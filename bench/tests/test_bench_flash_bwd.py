@@ -1,5 +1,5 @@
 """The readers of attention's backward span and counters
-(``flash_bwd_ms.train``, ``flash_bwd_kernel_pct.train``) on a synthetic
+(``attn_bwd_ms.train``, ``flash_bwd_kernel_pct.train``) on a synthetic
 trace, against the values counted by hand."""
 
 import pytest
@@ -19,7 +19,7 @@ def test_flash_bwd_readers_by_hand():
             rows.append(("flash_bwd", unit, b, t, t + 0.01, t, t + ms / 1e3))
     counters = {"llm.attn.bwd_calls": 6.0, "llm.attn.bwd_kernel": 6.0, "llm.moe.slots_routed.x": 1}
     tr = _trace(_dump(rows), counters, units=[{}] * 2)
-    assert _read("flash_bwd_ms.train", tr) == pytest.approx((20 + 30 + 25) * 2 / 2)
+    assert _read("attn_bwd_ms.train", tr) == pytest.approx((20 + 30 + 25) * 2 / 2)
     assert _read("flash_bwd_kernel_pct.train", tr) == pytest.approx(100.0)
     half = _trace(_dump(rows), {"llm.attn.bwd_calls": 6.0, "llm.attn.bwd_kernel": 3.0},
                   units=[{}] * 2)
@@ -31,19 +31,19 @@ def test_flash_bwd_readers_by_hand():
 def test_flash_bwd_readers_give_nothing_where_nothing_ran(monkeypatch):
     rows = [("backward", 1, -1, 0.0, 1.0, 0.0, 1.0)]
     tr = _trace(_dump(rows), {}, units=[{}])
-    assert _read("flash_bwd_ms.train", tr) is None                 # no flash_bwd span
+    assert _read("attn_bwd_ms.train", tr) is None                 # no flash_bwd span
     assert _read("flash_bwd_kernel_pct.train", tr) is None         # no backward counted
-    for name in ("flash_bwd_ms.train", "flash_bwd_kernel_pct.train"):
+    for name in ("attn_bwd_ms.train", "flash_bwd_kernel_pct.train"):
         assert _read(name, _trace(None)) is None                   # no unit traced
     # a program without the stage (the tree before it): nothing, and no raise
     monkeypatch.setattr(span, "STAGE_NAMES", tuple(n for n in span.STAGE_NAMES
                                                    if n != "flash_bwd"))
-    assert _read("flash_bwd_ms.train", tr) is None
+    assert _read("attn_bwd_ms.train", tr) is None
 
 
 def test_flash_bwd_readers_give_nothing_without_the_programs_passes():
     from types import SimpleNamespace
 
     empty = SimpleNamespace(program=None)
-    for name in ("flash_bwd_ms.train", "flash_bwd_kernel_pct.train"):
+    for name in ("attn_bwd_ms.train", "flash_bwd_kernel_pct.train"):
         assert _read(name, empty) is None

@@ -42,6 +42,22 @@ def test_flash_and_scan_cost_by_hand():
     assert b == 2 * 4 * 8 * 50 * 2048 * 64 + 2 * 4 * 8 * 50 * 2048 + 2 * 4 * 8 * 2048 * 16 + 4 * 8 * 50 * 64 * 16
 
 
+def test_flash_bwd_cost_by_hand():
+    # hymba's training layer: B 8, 25 / 5 heads of 64, S = T = 2048, bf16; 10·D flops a pair
+    for window, pairs, ms in ((1024, 1024 * 1025 // 2 + 1024 * 1024, 0.2036),
+                              (None, 2048 * 2049 // 2, 0.2716)):
+        f, b = ys.flash_bwd_cost(8, 25, 5, 2048, 2048, 64, 2, True, window)
+        assert f == 10 * 64 * 8 * 25 * pairs
+        # q, do, dq at 25 heads; k, v, dk, dv at 5; the float32 log-sum-exp
+        assert b == 2 * (3 * 8 * 25 * 2048 * 64 + 4 * 8 * 5 * 2048 * 64) + 4 * 8 * 25 * 2048
+        assert 1e3 * ys.least_s(f, b) == pytest.approx(ms, abs=5e-5)       # bound by flops
+        assert f / ys.PEAK_BF16 > b / ys.HBM_BYTES_PER_S
+    # a step: 29 windowed and 3 full layers
+    step = sum(ys.least_s(*ys.flash_bwd_cost(8, 25, 5, 2048, 2048, 64, 2, True, w))
+               for w in [1024] * 29 + [None] * 3)
+    assert 1e3 * step == pytest.approx(6.72, abs=5e-3)
+
+
 def test_copies_match_the_programs_arithmetic_today():
     torch = pytest.importorskip("torch")
     from repro_torch.kernels import flash_attention, ssm_scan
@@ -52,6 +68,10 @@ def test_copies_match_the_programs_arithmetic_today():
     k = torch.empty(2, 2, 32, 16, dtype=torch.bfloat16, device="meta")
     assert ys.flash_cost(2, 4, 2, 32, 32, 16, 2, True, 8, True) == \
         flash_attention.op_cost(q, k, k, True, 8, None, True)
+    lse = torch.empty(2, 4, 32, device="meta")
+    for w in (8, None):
+        assert ys.flash_bwd_cost(2, 4, 2, 32, 32, 16, 2, True, w) == \
+            flash_attention.op_cost_bwd(q, k, k, lse, q, w)
     x = torch.empty(2, 4, 32, 8, device="meta")
     dt = torch.empty(2, 4, 32, device="meta")
     bm = torch.empty(2, 32, 5, device="meta")
@@ -105,7 +125,8 @@ def _trace(names_us, calls):
 
     tr = tracing.Trace.__new__(tracing.Trace)
     tr.device = [_Ev(n, us) for n, us in names_us]
-    tr.costs = {readers.FLASH_FWD[0]: calls, readers.SCAN_FWD[0]: calls}
+    tr.costs = {readers.FLASH_FWD[0]: calls, readers.FLASH_BWD[0]: calls,
+                readers.SCAN_FWD[0]: calls}
     return tr
 
 
@@ -123,6 +144,14 @@ def test_roofline_reads_its_kernels_by_name():
     tr = _trace([(n, 5.0) for n in scan] * 2, calls)
     assert readers.roofline_pct(tr, readers.SCAN_FWD) == pytest.approx(
         100 * 2 * (4e9 / ys.PEAK_BF16) / 30e-6)
+    # the backward's two kernels, each once a call; the forward's are not its own
+    bwd = ["void (anonymous namespace)::flash_bwd_dq_kernel(BwdArgs)",
+           "void (anonymous namespace)::flash_bwd_dkdv_kernel(BwdArgs)"]
+    tr = _trace([(n, us) for n in bwd for us in (30.0, 20.0)] + [(flash, 10.0)] * 2, calls)
+    assert readers.roofline_pct(tr, readers.FLASH_BWD) == pytest.approx(
+        100 * 2 * (4e9 / ys.PEAK_BF16) / 100e-6)
+    assert readers.roofline_pct(tr, readers.FLASH_FWD) == pytest.approx(
+        100 * 2 * (4e9 / ys.PEAK_BF16) / 20e-6)
 
 
 @pytest.mark.parametrize("launches,calls", [(3, 2), (1, 2), (0, 2), (2, 0)],
@@ -131,3 +160,8 @@ def test_roofline_reads_nothing_where_launches_are_not_the_calls(launches, calls
     flash = "flash_fwd_kernel<64>(FlashArgs)"
     tr = _trace([(flash, 10.0)] * launches, [(4e9, 1e6, ys.PEAK_BF16)] * calls)
     assert readers.roofline_pct(tr, readers.FLASH_FWD) is None
+    # the backward: its dq kernel launched ``launches`` times, its dk/dv kernel once a call
+    tr = _trace([("flash_bwd_dq_kernel(BwdArgs)", 10.0)] * launches
+                + [("flash_bwd_dkdv_kernel(BwdArgs)", 10.0)] * calls,
+                [(4e9, 1e6, ys.PEAK_BF16)] * calls)
+    assert readers.roofline_pct(tr, readers.FLASH_BWD) is None

@@ -2,7 +2,7 @@
 bytes of a step, a call and a kernel call, from shapes alone.
 
 Frozen copies, so that a change to the program cannot move the yardstick:
-``attention_pairs`` and the flash ``op_cost`` of
+``attention_pairs``, the flash ``op_cost`` and ``op_cost_bwd`` of
 ``src/repro_torch/kernels/flash_attention.py``, the scan's ``op_cost`` of
 ``src/repro_torch/kernels/ssm_scan.py``, and ``chip_smoke.py``'s
 ``_train_flops`` with one change: the input embedding (a lookup, no
@@ -44,6 +44,14 @@ def flash_cost(b, hq, hkv, s, t, d, esize, causal, window, return_lse):
     flops = 4 * d * b * hq * attention_pairs(s, t, window or None, causal)
     nbytes = esize * (2 * b * hq * s * d + 2 * b * hkv * t * d)
     return flops, nbytes + (4 * b * hq * s if return_lse else 0)
+
+
+def flash_bwd_cost(b, hq, hkv, s, t, d, esize, causal, window):
+    """``(flops, bytes)`` of one flash backward: 10·D flops a pair and head
+    (S and dP recomputed, dV, dK and dQ); q, k, v, do and the float32
+    log-sum-exp read once, dq, dk and dv written once."""
+    flops = 10 * d * b * hq * attention_pairs(s, t, window or None, causal)
+    return flops, esize * (3 * b * hq * s * d + 4 * b * hkv * t * d) + 4 * b * hq * s
 
 
 def scan_cost(b, h, s, p, n, esize):
